@@ -19,11 +19,13 @@ import pathlib
 import sys
 import time
 
+import numpy as np
+
 
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="lightdock-tpu",
-        description="TPU-native GSO docking (DFIRE / DNA / PYDOCK scoring)")
+        description="GSO docking on JAX (DFIRE / DNA / PYDOCK scoring)")
     ap.add_argument("setup", help="setup.json produced by lightdock3_setup.py")
     ap.add_argument("positions", help="initial_positions_N.dat")
     ap.add_argument("steps", type=int, help="number of GSO steps")
@@ -31,9 +33,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", choices=["jax", "host"], default="jax",
                     help="jax: batched device engine (default); "
                          "host: float64 NumPy parity engine")
-    ap.add_argument("--platform", choices=["auto", "cpu", "tpu"], default="auto",
-                    help="force the JAX platform (some plugin setups ignore "
-                         "the JAX_PLATFORMS environment variable)")
+    ap.add_argument("--platform", choices=["auto", "cpu", "gpu"], default="auto",
+                    help="require a JAX platform; fails when it is not the "
+                         "one JAX runs on (default: whatever JAX picks)")
     ap.add_argument("--dtype", choices=["float32", "float64"], default=None,
                     help="device compute precision (default: float64 on CPU, "
                          "float32 on accelerators)")
@@ -48,20 +50,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps-per-save", type=int, default=10)
     ap.add_argument("--energy-mode", choices=["auto", "xla", "pallas"],
                     default="auto",
-                    help="pair-energy backend: fused XLA, the Pallas kernels "
-                         "with spatial tile culling, or auto (default: "
-                         "Pallas for large DFIRE complexes on TPU)")
-    ap.add_argument("--dq-bf16", action="store_true",
-                    help="store the DFIRE delta-potential tensor in "
-                         "bfloat16: halves its HBM footprint/bandwidth "
-                         "(the XLA-path bottleneck on large complexes) at "
-                         "~1e-3 relative energy error")
-    ap.add_argument("--r-tile", type=int, default=None,
-                    help="Pallas receptor tile (multiple of 8; default: "
-                         "measured-best per complex)")
-    ap.add_argument("--l-tile", type=int, default=None,
-                    help="Pallas ligand tile (multiple of 128; default: "
-                         "measured-best per complex)")
+                    help="pair-energy backend: fused XLA, the DFIRE pair "
+                         "kernel with spatial tile culling (GPU only), or "
+                         "auto (the kernel where it measured faster)")
     ap.add_argument("--jax-rng", action="store_true",
                     help="use the native device RNG instead of the bit-exact "
                          "reference (rand 0.7) stream")
@@ -78,14 +69,34 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def pick_energy_chunk(n_pairs: int, g: int, dtype_bytes: int) -> int:
-    """Bound the (chunk, Nr, Nl) working set to ~1.5 GB of intermediates.
+# Pair-intermediate budget on hosts whose device reports no memory limit
+# (the CPU backend).
+HOST_ENERGY_BUDGET = 1.5e9
+# Share of the device's memory limit given to pair intermediates.
+DEVICE_ENERGY_SHARE = 0.25
+
+
+def energy_budget_bytes() -> int:
+    """Bytes the (chunk, Nr, Nl) pair intermediates may take: a share of
+    the device's own ``bytes_limit``, or a fixed budget on the CPU."""
+    import jax
+
+    stats = jax.devices()[0].memory_stats() or {}
+    if "bytes_limit" in stats:
+        return int(stats["bytes_limit"] * DEVICE_ENERGY_SHARE)
+    return int(HOST_ENERGY_BUDGET)
+
+
+def pick_energy_chunk(n_pairs: int, g: int, dtype_bytes: int,
+                      budget_bytes: int = HOST_ENERGY_BUDGET) -> int:
+    """Bound the (chunk, Nr, Nl) working set to ``budget_bytes`` of
+    intermediates.
 
     Rounds to an even partition of the glowworm axis so padding waste is
     minimal.
     """
-    budget = int(1.5e9 / (6 * dtype_bytes))  # ~6 live pair-sized arrays
-    chunk = max(1, budget // max(n_pairs, 1))
+    per_pose = 6 * dtype_bytes * max(n_pairs, 1)  # ~6 live pair-sized arrays
+    chunk = max(1, int(budget_bytes) // per_pose)
     if chunk >= g:
         return 0  # no chunking needed
     n_seg = -(-g // chunk)
@@ -93,6 +104,9 @@ def pick_energy_chunk(n_pairs: int, g: int, dtype_bytes: int) -> int:
 
 
 def main(argv=None) -> int:
+    from .utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     args = build_arg_parser().parse_args(argv)
     logging.basicConfig(
         level=os.environ.get("LIGHTDOCK_TPU_LOG", "INFO"),
@@ -140,7 +154,6 @@ def run_multi(args, positions_files, log) -> int:
     """Batched multi-swarm execution: all swarms in one jitted program,
     sharded over the available devices."""
     import jax
-    import numpy as np
 
     from .parallel.farm import run_swarm_farm
     from .parallel.multihost import maybe_initialize_distributed
@@ -169,7 +182,10 @@ def run_multi(args, positions_files, log) -> int:
     g = positions_list[0].shape[0]
     chunk = (args.energy_chunk if args.energy_chunk is not None
              else pick_energy_chunk(n_pairs, g * len(positions_list),
-                                    np.dtype(dtype_name).itemsize))
+                                    np.dtype(dtype_name).itemsize,
+                                    energy_budget_bytes()))
+    log.info("backend=%s dtype=%s energy_chunk=%s pairs=%d",
+             backend, dtype_name, chunk, n_pairs)
 
     from .utils.metrics import RunMetrics
     metrics = RunMetrics(args.metrics, context={
@@ -180,15 +196,15 @@ def run_multi(args, positions_files, log) -> int:
     import time
     t0 = time.time()
 
+    params = sim.batch_params(dtype=np.dtype(dtype_name))
+
     def farm():
-        run_swarm_farm(sim.batch_params(dtype=np.dtype(dtype_name)),
-                       positions_list, swarm_ids, sim.seed, args.steps,
-                       sim.use_anm, sim.setup.anm_rec, sim.setup.anm_lig,
-                       dtype, output_root=output_root,
+        run_swarm_farm(params, positions_list, swarm_ids, sim.seed,
+                       args.steps, sim.use_anm, sim.setup.anm_rec,
+                       sim.setup.anm_lig, dtype, output_root=output_root,
                        energy_chunk=chunk, energy_mode=args.energy_mode,
                        segment=max(1, args.steps_per_save),
-                       metrics=metrics, resume=bool(args.resume),
-                       r_tile=args.r_tile, l_tile=args.l_tile)
+                       metrics=metrics, resume=bool(args.resume))
 
     if args.profile:
         import pathlib as _pl
@@ -220,14 +236,26 @@ def run_host(sim, args, outdir) -> None:
 
 
 def _apply_platform(args) -> None:
-    if getattr(args, "platform", "auto") != "auto":
-        import jax
-        jax.config.update("jax_platforms", args.platform)
+    """Honour --platform: select it, then fail loudly unless JAX runs on it
+    (no silent fallback to another device)."""
+    platform = getattr(args, "platform", "auto")
+    if platform == "auto":
+        return
+    import jax
+
+    jax.config.update("jax_platforms", "cuda" if platform == "gpu" else platform)
+    try:
+        backend = jax.default_backend()
+    except (AssertionError, RuntimeError) as err:
+        raise RuntimeError(f"--platform {platform}: JAX cannot start it "
+                           f"({err!r})") from err
+    if backend != platform:
+        raise RuntimeError(f"--platform {platform} requested but JAX runs on "
+                           f"{backend!r}")
 
 
 def run_jax(sim, args, outdir, log) -> None:
     import jax
-    import numpy as np
 
     _apply_platform(args)
     backend = jax.default_backend()
@@ -243,7 +271,8 @@ def run_jax(sim, args, outdir, log) -> None:
     n_pairs = sim.receptor.num_atoms * sim.ligand.num_atoms
     g = sim.positions.shape[0]
     chunk = (args.energy_chunk if args.energy_chunk is not None
-             else pick_energy_chunk(n_pairs, g, np.dtype(dtype_name).itemsize))
+             else pick_energy_chunk(n_pairs, g, np.dtype(dtype_name).itemsize,
+                                    energy_budget_bytes()))
     log.info("backend=%s dtype=%s energy_chunk=%s pairs=%d",
              backend, dtype_name, chunk, n_pairs)
 
@@ -251,11 +280,9 @@ def run_jax(sim, args, outdir, log) -> None:
                           sim.positions, sim.seed, sim.use_anm,
                           sim.setup.anm_rec, sim.setup.anm_lig,
                           output_directory=str(outdir), dtype=dtype,
-                          energy_chunk=chunk,
-                          energy_mode=args.energy_mode,
-                          rng_mode="native" if args.jax_rng else "reference",
-                          dq_bf16=args.dq_bf16,
-                          r_tile=args.r_tile, l_tile=args.l_tile)
+                          energy_chunk=chunk, energy_mode=args.energy_mode,
+                          rng_mode="native" if args.jax_rng else "reference")
+    log.info("energy_mode=%s", runner.energy_mode)
     if args.resume:
         runner.load_snapshot(args.resume, args.resume_step)
     print(f"Starting optimization ({args.steps} steps)")

@@ -1,6 +1,6 @@
 """Batched pose energies, generic over NumPy / jax.numpy.
 
-The TPU-first inversion of the reference's per-glowworm scoring loop: all
+The batched inversion of the reference's per-glowworm scoring loop: all
 G poses of a swarm are scored in one shot over (G, Nr, Nl) tiles.  The
 same source serves as:
 
@@ -61,136 +61,6 @@ class BatchScoringParams:
     vdw_c_lig: Optional[np.ndarray] = None
     vdw_r_rec: Optional[np.ndarray] = None
     vdw_r_lig: Optional[np.ndarray] = None
-    # DFIRE fast path (gather-free step-function form; see dfire_step_tables)
-    dfire_dq: Optional[np.ndarray] = None          # (K, Nr, Nl) delta potentials
-    dfire_thresholds: Optional[np.ndarray] = None  # (K,) squared-distance steps
-    # DFIRE type-indexed path (O(Nr+Nl) memory; see dfire_type_tables)
-    dfire_rec_half: Optional[np.ndarray] = None    # (K, Nr, DFIRE_TYPE_PAD)
-    dfire_lig_onehot: Optional[np.ndarray] = None  # (DFIRE_TYPE_PAD, Nl)
-
-
-def dfire_step_tables(receptor_types: np.ndarray, ligand_types: np.ndarray,
-                      pot_flat: np.ndarray, dist_to_bins: np.ndarray,
-                      dtype=np.float32):
-    """Gather-free DFIRE formulation for the device hot path.
-
-    The reference computes ``bin = DIST_TO_BINS[trunc(2*sqrt(d2) - 1)] - 1``
-    then gathers ``flat[ta*3380 + tb*20 + bin]`` per pair (reference
-    src/dfire.rs:336-338).  ``bin`` is a *monotone nondecreasing step
-    function of d2*, so the per-pair value can be written
-
-        contrib(i, j) = Q[i,j,0] + sum_k dQ[i,j,k] * [d2 >= s_k]
-
-    where ``Q[i,j,b]`` is the (spill-faithful) per-type-pair potential at
-    bin b, ``dQ`` its forward difference over b, and ``s_k = ((m_k+1)/2)^2``
-    the squared distance at which the bin first reaches value k (``m_k`` =
-    first DIST_TO_BINS slot with value-1 >= k).  On TPU this replaces a 571k
-    -entry gather per pair with fused compare+FMA lanes — no gather, no
-    sqrt, no integer ops.  Channels whose threshold exceeds the 15 A cutoff
-    (s_k > 225) can never fire on an unmasked pair (every contributing pair
-    has d2 <= 225), so they are dropped at build time: with the reference
-    DIST_TO_BINS only bins 1..20 are reachable in-cutoff, trimming the
-    select-add chain (and the dq tensor) from 32 to 21 channels.  Returns
-    (dq (K, Nr, Nl), thresholds (K,)); thresholds[0] is 0 (bin 0 is the
-    baseline term).
-    """
-    from ..scoring.potentials import potential_by_bins
-
-    num_bins = 32
-    p32 = potential_by_bins(pot_flat, num_bins)            # (169, 169, 32)
-    thresholds = dfire_bin_thresholds(dist_to_bins, num_bins)
-    live = np.nonzero(thresholds <= C.DFIRE_DIST_CUTOFF2)[0]  # always incl. 0
-
-    # Build channel-by-channel: the forward difference commutes with the
-    # type gather, so each live channel is one small (169, 169) table diff
-    # followed by a typed gather straight into the output dtype.  Peak host
-    # memory is the (K, Nr, Nl) result + one (Nr, Nl) temp, instead of two
-    # (Nr, Nl, 32) f64 intermediates (~6 GB at 1k4c scale).
-    rt = receptor_types.astype(np.int64)
-    lt = ligand_types.astype(np.int64)
-    dq = np.empty((live.size, rt.size, lt.size), dtype=dtype)
-    for out_i, k in enumerate(live):
-        tbl = p32[:, :, k] - (p32[:, :, k - 1] if k > 0 else 0.0)
-        dq[out_i] = tbl.astype(dtype)[rt[:, None], lt[None, :]]
-    return dq, thresholds[live].astype(dtype)
-
-
-DFIRE_TYPE_PAD = 176  # 169 atom types padded to a sublane multiple (8)
-
-
-def dfire_type_tables(receptor_types: np.ndarray, ligand_types: np.ndarray,
-                      pot_flat: np.ndarray, dist_to_bins: np.ndarray,
-                      dtype=np.float32):
-    """Type-indexed DFIRE step tables: O(Nr + Nl) memory.
-
-    The step-function form's per-pair delta potential is a pure function of
-    the two atom TYPES, ``dT_k[ta, tb]``, so the (K, Nr, Nl) ``dfire_dq``
-    tensor (0.94 GB at 1k4c scale, O(Nr*Nl*K) — the memory wall the
-    reference's O(Nr+Nl) loop never hits, reference src/dfire.rs:325-345)
-    is redundant: factor the type selection as
-
-        dq[k, i, j] = rec_half[k, i, :] @ onehot(tb_j)
-
-    where ``rec_half[k, i, tb] = dT_k[ta_i, tb]`` is the receptor-side half
-    of the contraction (a row gather, built once here) and the ligand side
-    is a one-hot matrix.  The Pallas kernel completes the selection with one
-    (r_tile, TYPE_PAD) @ (TYPE_PAD, l_tile) matmul per channel per tile pair
-    — exact (each output element is a copy of one table entry) at f32-exact
-    matmul precision (Precision.HIGHEST).
-
-    Returns (rec_half (K, Nr, TYPE_PAD), lig_onehot (TYPE_PAD, Nl),
-    thresholds (K,)); channels trimmed to the 15 A cutoff exactly like
-    dfire_step_tables, so thresholds match dfire_dq's channel for channel.
-    """
-    from ..scoring.potentials import potential_by_bins
-
-    num_bins = 32
-    p32 = potential_by_bins(pot_flat, num_bins)            # (169, 169, 32)
-    thresholds = dfire_bin_thresholds(dist_to_bins, num_bins)
-    live = np.nonzero(thresholds <= C.DFIRE_DIST_CUTOFF2)[0]
-    rt = receptor_types.astype(np.int64)
-    lt = ligand_types.astype(np.int64)
-    n_types = p32.shape[0]
-    rec_half = np.zeros((live.size, rt.size, DFIRE_TYPE_PAD), dtype=dtype)
-    for out_i, k in enumerate(live):
-        tbl = p32[:, :, k] - (p32[:, :, k - 1] if k > 0 else 0.0)
-        rec_half[out_i, :, :n_types] = tbl.astype(dtype)[rt]
-    lig_onehot = np.zeros((DFIRE_TYPE_PAD, lt.size), dtype=dtype)
-    lig_onehot[lt, np.arange(lt.size)] = 1.0
-    return rec_half, lig_onehot, thresholds[live].astype(dtype)
-
-
-def ensure_dfire_types(p: "BatchScoringParams",
-                       dtype=np.float64) -> "BatchScoringParams":
-    """Return params with the type-indexed DFIRE tables populated (no-op
-    for non-DFIRE methods or when already present).  Built at f64 by
-    default: device upload downcasts to the run dtype, so f32 runs see
-    exactly the values a direct f32 build would produce and f64 runs stay
-    full-precision."""
-    if p.method != "dfire" or p.dfire_rec_half is not None:
-        return p
-    rec_half, lig_onehot, thresholds = dfire_type_tables(
-        np.asarray(p.atom_types_rec), np.asarray(p.atom_types_lig),
-        np.asarray(p.potential, np.float64), np.asarray(p.dist_to_bins),
-        dtype=dtype)
-    return dataclasses.replace(p, dfire_rec_half=rec_half,
-                               dfire_lig_onehot=lig_onehot,
-                               dfire_thresholds=thresholds)
-
-
-def dfire_bin_thresholds(dist_to_bins, num_bins: int = 32) -> np.ndarray:
-    """Squared-distance thresholds s_k at which the DFIRE bin value first
-    reaches k (see dfire_step_tables); s_0 = 0 (the baseline bin)."""
-    bins_of_slot = np.asarray(dist_to_bins, dtype=np.int64) - 1  # value at trunc(d)=m
-    thresholds = np.zeros(num_bins, dtype=np.float64)
-    for k in range(1, num_bins):
-        slots = np.nonzero(bins_of_slot >= k)[0]
-        if slots.size == 0:
-            thresholds[k] = np.inf  # unreachable bin: step never fires
-        else:
-            m = slots[0]
-            thresholds[k] = ((m + 1) / 2.0) ** 2
-    return thresholds
 
 
 def _res_onehot(model: DockingModel) -> np.ndarray:
@@ -203,17 +73,9 @@ def _res_onehot(model: DockingModel) -> np.ndarray:
 
 def build_batch_params(receptor: DockingModel, ligand: DockingModel,
                        use_anm: bool, dtype=np.float64,
-                       potential: Optional[np.ndarray] = None,
-                       dfire_mode: str = "auto") -> BatchScoringParams:
-    """Build device-ready scoring params.
-
-    dfire_mode: 'gather' keeps the reference-style flat-table gather (host
-    oracle / tests), 'steps' precomputes the gather-free (32, Nr, Nl)
-    step-function tables (XLA device fast path; ~4B * 32 * Nr * Nl of HBM),
-    'types' builds the O(Nr+Nl) type-indexed tables instead (Pallas v2
-    kernel path; see dfire_type_tables), 'auto' picks 'steps' for float32
-    and 'gather' for float64.
-    """
+                       potential: Optional[np.ndarray] = None
+                       ) -> BatchScoringParams:
+    """Build device-ready scoring params."""
     method = receptor.method
     mem_mask = np.zeros(receptor.num_atoms, dtype=dtype)
     mem_mask[receptor.membrane] = 1.0
@@ -233,22 +95,10 @@ def build_batch_params(receptor: DockingModel, ligand: DockingModel,
         p.atom_types_rec = receptor.atom_types.astype(np.int32)
         p.atom_types_lig = ligand.atom_types.astype(np.int32)
         pot = potential if potential is not None else potentials.load_potential()
-        # Keep the table at f64 host-side: derived tables (dfire_step_tables
-        # here, ensure_dfire_types later) must difference at full precision
-        # regardless of the run dtype; device upload downcasts to the run
-        # dtype (gso_jax.device_params), which matches casting at build.
+        # Kept at f64 host-side; device upload downcasts to the run dtype
+        # (gso_jax.device_params).
         p.potential = pot.astype(np.float64)
-        d2b = tables.dfire_tables()["dist_to_bins"]
-        p.dist_to_bins = d2b.astype(np.int32)
-        if dfire_mode == "auto":
-            dfire_mode = "steps" if np.dtype(dtype) == np.float32 else "gather"
-        if dfire_mode == "steps":
-            p.dfire_dq, p.dfire_thresholds = dfire_step_tables(
-                p.atom_types_rec, p.atom_types_lig, pot, d2b, dtype=dtype)
-        elif dfire_mode == "types":
-            p.dfire_rec_half, p.dfire_lig_onehot, p.dfire_thresholds = (
-                dfire_type_tables(p.atom_types_rec, p.atom_types_lig, pot,
-                                  d2b, dtype=np.float64))
+        p.dist_to_bins = tables.dfire_tables()["dist_to_bins"].astype(np.int32)
     else:
         p.ele_rec = receptor.ele_charges.astype(dtype)
         p.ele_lig = ligand.ele_charges.astype(dtype)
@@ -263,16 +113,14 @@ def batch_pose_coords(p: BatchScoringParams, t, q, a_rec, a_lig, xp=np):
     """Transformed coordinates for G poses.
 
     Returns (rec (G, Nr, 3), lig (G, Nl, 3)).  Ligand: quaternion rotation
-    (as a (3,3) matrix contraction feeding the MXU) + translation + ANM;
-    receptor: ANM only.  Matches reference src/dfire.rs:274-320.
+    (as a (3,3) matrix contraction) + translation + ANM; receptor: ANM
+    only.  Matches reference src/dfire.rs:274-320.
     """
     rot = qt.rotation_matrix(q, xp)                       # (G, 3, 3)
     # precision='highest' on every pose-transform contraction: at default
-    # precision XLA:TPU feeds these tiny-K matmuls to the MXU in bf16,
-    # which costs ~1e-3 relative in coordinates and ~1e-2 in energies at
-    # contact (PRECISION_r05 on-chip part A measured it); HIGHEST keeps
-    # them f32-exact for a negligible share of the step (transform is
-    # ~3% of the profile).
+    # precision an f32 matmul may run in TF32 (about three decimal digits)
+    # on the GPU, which would move coordinates by ~1e-3 A and DFIRE pairs
+    # across bin edges.
     kw = {} if xp is np else {"precision": "highest"}
     lig = xp.einsum("gab,nb->gna", rot, p.lig_coords, **kw)  # (G, Nl, 3)
     lig = lig + t[:, None, :]
@@ -345,8 +193,8 @@ def finalize_raw(p: BatchScoringParams, raw):
 
 
 def _dfire_parts(p: BatchScoringParams, d2, xp=np):
-    if p.dfire_dq is not None:
-        return _dfire_parts_steps(p, d2, xp)
+    """DFIRE pair sum: the reference's bin rule and one gather per pair
+    from the flat table (reference src/dfire.rs:336-338)."""
     dtype = d2.dtype
     mask = d2 <= C.DFIRE_DIST_CUTOFF2
     d = xp.sqrt(xp.where(mask, d2, xp.ones_like(d2))) * 2.0 - 1.0
@@ -359,32 +207,6 @@ def _dfire_parts(p: BatchScoringParams, d2, xp=np):
     contrib = p.potential[idx]
     raw = xp.where(mask, contrib, xp.zeros_like(contrib)).sum(axis=(1, 2))
     close = mask & (d <= C.INTERFACE_CUTOFF)
-    iface_rec = close.any(axis=2).astype(dtype)
-    iface_lig = close.any(axis=1).astype(dtype)
-    return raw, iface_rec, iface_lig
-
-
-def _dfire_parts_steps(p: BatchScoringParams, d2, xp=np):
-    """Gather-free DFIRE pair sum (see dfire_step_tables).
-
-    Per pair: baseline dq[0] plus one compare+FMA per threshold, all
-    elementwise on (G, Nr, Nl) tiles — the TPU-native hot loop.
-    """
-    dtype = d2.dtype
-    mask = (d2 <= C.DFIRE_DIST_CUTOFF2).astype(dtype)
-    # Upcast the baseline so the per-pair chain accumulates at d2's
-    # precision even when dq is stored bf16 (the bandwidth-halving mode:
-    # each add then promotes bf16 -> f32 individually).
-    contrib = xp.broadcast_to(p.dfire_dq[0][None], d2.shape).astype(dtype)
-    num_bins = p.dfire_dq.shape[0]
-    for k in range(1, num_bins):
-        # select-add form: one select + one add per channel on the VPU
-        contrib = xp.where(d2 >= p.dfire_thresholds[k],
-                           contrib + p.dfire_dq[k][None], contrib)
-    raw = (contrib * mask).sum(axis=(1, 2))
-    # Interface on the scaled distance d <= 3.9 <=> d2 <= 2.45^2
-    # (reference src/dfire.rs:339 with d = 2*sqrt(d2) - 1).
-    close = d2 <= ((C.INTERFACE_CUTOFF + 1.0) / 2.0) ** 2
     iface_rec = close.any(axis=2).astype(dtype)
     iface_lig = close.any(axis=1).astype(dtype)
     return raw, iface_rec, iface_lig

@@ -1,609 +1,137 @@
-"""Pallas-kernel energy path: drop-in ``energy_fn`` for the GSO engine.
+"""Kernel energy path: drop-in ``energy_fn`` for the GSO engine built on
+the DFIRE pair kernel (ops.pallas_energy).
 
-Bridges the batched scoring parameters to the ops.pallas_energy kernels:
-host-side one-time tile geometry for the conservative cull, then a traced
-function (pose transform in XLA -> Pallas pair kernel -> XLA bias) with
-the same signature as engine.energy_batch.batch_energy.
+Host side, once: spatially sort both atom axes so kernel tiles are
+compact, and compute the static tile boxes of the cull.  Traced, per call:
+pose transform in XLA -> cull mask in XLA -> pair kernel -> bias in XLA,
+with the signature of engine.energy_batch.batch_energy plus the
+moved-pose gate.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os as _os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .. import constants as Cst
-from ..ops import pallas_energy as _pe
+from .. import constants as C
 from ..ops import quaternion as qt
-from ..ops.pallas_energy import (L_SUB, L_TILE, R_SUB, R_TILE,
-                                 anm_mode_bounds, cull_mask_boxes,
-                                 dfire_pairs_pallas, dfire_pairs_pallas_v2,
-                                 elec_vdw_pairs_pallas,
-                                 elec_vdw_pairs_pallas_v2,
-                                 morton_order, pose_slack, rcb_order,
-                                 tile_boxes)
-from .energy_batch import (BatchScoringParams, _bias, dfire_bin_thresholds,
-                           finalize_raw)
+from ..ops.pallas_energy import (L_BLK, NUM_SLOTS, R_BLK, anm_mode_bounds,
+                                 cull_mask_boxes, dfire_pairs, pose_slack,
+                                 rcb_order, slot_table, tile_boxes)
+from .energy_batch import BatchScoringParams, _bias, finalize_raw
+
+# Receptor-atom fields permuted by spatial_sort_params, with their atom axis.
+_REC_FIELDS = {"rec_coords": 0, "rec_nmodes": 1, "rec_res_onehot": 1,
+               "rec_membrane_mask": 0, "atom_types_rec": 0, "ele_rec": 0,
+               "vdw_c_rec": 0, "vdw_r_rec": 0}
+_LIG_FIELDS = {"lig_coords": 0, "lig_nmodes": 1, "lig_res_onehot": 1,
+               "atom_types_lig": 0, "ele_lig": 0, "vdw_c_lig": 0,
+               "vdw_r_lig": 0}
 
 
-def spatial_sort_params(params: BatchScoringParams,
-                        order: str = "rcb",
-                        r_tile: int = R_TILE,
-                        l_tile: int = L_TILE) -> BatchScoringParams:
-    """Permute both atom axes into a spatially-coherent order.
+def spatial_sort_params(params: BatchScoringParams, r_blk: int = R_BLK,
+                        l_blk: int = L_BLK) -> BatchScoringParams:
+    """Permute both atom axes into tile-aware recursive-bisection order.
 
-    Semantically free — every per-atom array (coordinates, ANM modes,
-    types/charges, restraint one-hots, membrane mask, DFIRE tables) is
-    permuted consistently, so energies and biases are unchanged — but tile
-    bounding boxes become compact, which is what makes the conservative
-    cull effective.  ``order``: 'rcb' (tile-aware recursive bisection,
-    default; hierarchical so the cull's sub-boxes nest inside compact
-    kernel tiles) or 'morton' (Z-curve).
+    Semantically free (every per-atom array is permuted consistently, so
+    energies and biases are unchanged) but tile bounding boxes become
+    compact, which is what makes the cull effective.
     """
-    if order == "rcb":
-        pr = rcb_order(params.rec_coords,
-                       (r_tile, R_SUB) if r_tile % R_SUB == 0 else r_tile)
-        pl_ = rcb_order(params.lig_coords,
-                        (l_tile, L_SUB) if l_tile % L_SUB == 0 else l_tile)
-    elif order == "morton":
-        pr = morton_order(params.rec_coords)
-        pl_ = morton_order(params.lig_coords)
-    else:
-        raise ValueError(f"unknown spatial order {order!r}")
-
-    def take(x, axis, perm):
-        return None if x is None else np.take(np.asarray(x), perm, axis=axis)
-
-    return dataclasses.replace(
-        params,
-        rec_coords=take(params.rec_coords, 0, pr),
-        rec_nmodes=take(params.rec_nmodes, 1, pr),
-        rec_res_onehot=take(params.rec_res_onehot, 1, pr),
-        rec_membrane_mask=take(params.rec_membrane_mask, 0, pr),
-        lig_coords=take(params.lig_coords, 0, pl_),
-        lig_nmodes=take(params.lig_nmodes, 1, pl_),
-        lig_res_onehot=take(params.lig_res_onehot, 1, pl_),
-        atom_types_rec=take(params.atom_types_rec, 0, pr),
-        atom_types_lig=take(params.atom_types_lig, 0, pl_),
-        ele_rec=take(params.ele_rec, 0, pr),
-        ele_lig=take(params.ele_lig, 0, pl_),
-        vdw_c_rec=take(params.vdw_c_rec, 0, pr),
-        vdw_c_lig=take(params.vdw_c_lig, 0, pl_),
-        vdw_r_rec=take(params.vdw_r_rec, 0, pr),
-        vdw_r_lig=take(params.vdw_r_lig, 0, pl_),
-        dfire_dq=(None if params.dfire_dq is None
-                  else np.asarray(params.dfire_dq)[:, pr][:, :, pl_]),
-        dfire_rec_half=take(params.dfire_rec_half, 1, pr),
-        dfire_lig_onehot=take(params.dfire_lig_onehot, 1, pl_),
-    )
+    pr = rcb_order(params.rec_coords, r_blk)
+    pl_ = rcb_order(params.lig_coords, l_blk)
+    kw = {}
+    for fields, perm in ((_REC_FIELDS, pr), (_LIG_FIELDS, pl_)):
+        for name, axis in fields.items():
+            v = getattr(params, name)
+            if v is not None:
+                kw[name] = np.take(np.asarray(v), perm, axis=axis)
+    return dataclasses.replace(params, **kw)
 
 
-# Env-overridable for A/B measurement (scripts/bench_farm_opts.py): wider
-# receptor tiles need smaller per-call pose batches to fit the
-# (gp, 3, l_tile) VMEM-resident ligand block.  Read per call (not frozen
-# at import) so it behaves like the other LIGHTDOCK_V2_* A/B knobs.
-V2_MAX_POSES_PER_CALL_DEFAULT = 2048
+def make_pallas_energy_fn(params: BatchScoringParams, interpret: bool = False,
+                          cull: bool = True, r_blk: int = R_BLK,
+                          l_blk: int = L_BLK):
+    """Build energy_fn(p, t, q, a_rec, a_lig, moved=None, prev_scoring=None)
+    -> (G,) scores for DFIRE ``params`` (spatially sorted by the caller
+    for the cull to bite; any atom order gives the same energies).
 
-
-def pose_chunked_energy(energy_fn, max_chunk: int | None = None):
-    """Wrap an energy_fn to process huge pose batches in equal chunks.
-
-    The v2 kernels keep the whole (G, 3, l_tile) ligand block VMEM-resident
-    per grid column; above ~2k poses (multi-swarm farms: 32 swarms x 200
-    glowworms = 6400 flat poses) that block alone exceeds the VMEM budget.
-    Chunks are ceil-balanced so no pose padding is wasted (6400 -> 4 x
-    1600, not 4 x 2048); each chunk is one kernel launch under lax.map.
-    The moved/prev_scoring gate passes through per chunk (pose-local
-    semantics)."""
-
-    def wrapped(p, t, q, a_rec, a_lig, moved=None, prev_scoring=None):
-        if max_chunk is not None:
-            limit = max_chunk
-        elif "LIGHTDOCK_V2_MAX_POSES_PER_CALL" in _os.environ:
-            limit = int(_os.environ["LIGHTDOCK_V2_MAX_POSES_PER_CALL"])
-        else:
-            # Receptor-ANM kernels carry a (G, r_tile, 3) pose-dependent
-            # receptor block; the factory computes the VMEM-fit pose cap
-            # (measured: 200 poses at r64 compile, 1600 OOM at 100M).
-            limit = getattr(energy_fn, "max_poses_per_call", None
-                            ) or V2_MAX_POSES_PER_CALL_DEFAULT
-        n = t.shape[0]
-        if n <= limit:
-            return energy_fn(p, t, q, a_rec, a_lig, moved=moved,
-                             prev_scoring=prev_scoring)
-        n_chunks = -(-n // limit)
-        chunk = -(-(-(-n // n_chunks)) // 8) * 8   # ceil to a multiple of 8
-        pad = n_chunks * chunk - n
-
-        def padded(x, edge=True):
-            if pad == 0:
-                return x
-            if edge:
-                # Replicate the last real pose: finite coordinates keep the
-                # in-kernel exact-distance gates NaN-free (a zero-filled
-                # quaternion rotates to NaN, and one NaN pose poisons the
-                # chunk-wide min-d2 gate for every real pose in its chunk);
-                # the duplicate results are sliced off below.
-                widths = ((0, pad),) + ((0, 0),) * (x.ndim - 1)
-                return jnp.pad(x, widths, mode="edge")
-            return jnp.concatenate(
-                [x, jnp.zeros((pad,) + x.shape[1:], x.dtype)], axis=0)
-
-        args = [padded(t), padded(q), padded(a_rec), padded(a_lig)]
-        gate = moved is not None and prev_scoring is not None
-        if gate:
-            # Padded poses are "unmoved": the kernels never touch them.
-            args += [padded(moved, edge=False), padded(prev_scoring)]
-
-        def one(xs):
-            if gate:
-                tc, qc, arc, alc, mc, pc = xs
-                return energy_fn(p, tc, qc, arc, alc, moved=mc,
-                                 prev_scoring=pc)
-            tc, qc, arc, alc = xs
-            return energy_fn(p, tc, qc, arc, alc)
-
-        shaped = [x.reshape((n_chunks, chunk) + x.shape[1:]) for x in args]
-        return jax.lax.map(one, tuple(shaped)).reshape(-1)[:n]
-
-    return wrapped
-
-
-def _morton_key(t):
-    """(G,) int32 Morton (Z-curve) key of pose translations, 10 bits/dim.
-
-    Traced (device-side): quantization bounds come from the batch itself —
-    only the ORDER matters, never the values, so the dynamic bounds are
-    semantically free.  Used to sort poses so each kernel pose-chunk is
-    spatially coherent: chunk-granularity cull bits (the OR over a chunk's
-    poses) then approach single-pose tightness."""
-    tmin = t.min(axis=0)
-    span = t.max(axis=0) - tmin
-    cell = jnp.maximum(span / 1023.0, jnp.asarray(1e-9, t.dtype))
-    ii = jnp.clip(((t - tmin[None]) / cell[None]).astype(jnp.int32),
-                  0, 1023).astype(jnp.uint32)
-
-    def spread(v):
-        v = (v | (v << 16)) & jnp.uint32(0x30000FF)
-        v = (v | (v << 8)) & jnp.uint32(0x300F00F)
-        v = (v | (v << 4)) & jnp.uint32(0x30C30C3)
-        v = (v | (v << 2)) & jnp.uint32(0x9249249)
-        return v
-
-    key = spread(ii[:, 0]) | (spread(ii[:, 1]) << 1) | (spread(ii[:, 2]) << 2)
-    return key.astype(jnp.int32)  # 30 bits used: sign-safe as int32
-
-
-def validate_tiles(r_tile: int, l_tile: int) -> None:
-    """Fail fast on tile shapes Mosaic cannot lower (the block specs need
-    8-divisible sublane / 128-divisible lane tiles) instead of erroring
-    deep inside kernel lowering."""
-    if not (isinstance(r_tile, int) and r_tile > 0 and r_tile % 8 == 0):
-        raise ValueError(
-            f"r_tile must be a positive multiple of 8, got {r_tile!r}")
-    if not (isinstance(l_tile, int) and l_tile > 0 and l_tile % 128 == 0):
-        raise ValueError(
-            f"l_tile must be a positive multiple of 128, got {l_tile!r}")
-
-
-def pick_tiles(params: BatchScoringParams, kernel: str = "v2"):
-    """Measured-best kernel tile shape for a complex.
-
-    v1 (per-pose kernel): receptor tiles of 32 atoms (16 loses to per-body
-    overhead, 64 blows the VMEM coordinate-block budget), ligand tiles
-    capped at 384 lanes (512 exceeds the scoped-VMEM limit with the
-    21-channel dq block).
-
-    v2 (pose-chunked kernel): ligand tile chosen from {128..512} to
-    minimize padded lanes first (1azp's 506 atoms pad 52% at l=384 but
-    1.2% at 512), larger on ties (fewer grid steps / block refetches);
-    receptor tiles widen to 64 when the receptor is pose-dependent
-    (receptor ANM: halves the (G, r_tile, 3) block refetch count —
-    measured 56.8k -> 71.7k poses/s on 1azp).  The widening is elec/vdw
-    -only: the DFIRE kernel's per-tile rec_half channel block and dq
-    scratch already crowd scoped VMEM, and the double-buffered
-    (G, 64, 3) receptor block pushes it past the 16M limit (1czy DFIRE
-    ANM OOMs at r=64 even at pose block 8).
+    The closure captures only small host-side geometry (tile boxes, ANM
+    mode bounds); the large arrays flow through the ``p`` pytree.  With
+    ``moved``/``prev_scoring`` (the reference's moved||step==0 rescoring
+    gate, src/glowworm.rs:61-72) unmoved poses skip the kernel and keep
+    their stored score.
     """
-    nl = params.lig_coords.shape[0]
-    if kernel == "v1":
-        return 32, min(384, -(-nl // 128) * 128)
-    candidates = [128, 256, 384, 512]
-    l_tile = min(candidates,
-                 key=lambda l: (-(-nl // l) * l, -l))
-    rec_per_pose = params.use_anm and params.rec_nmodes.shape[0] > 0
-    return (64 if rec_per_pose and params.method != "dfire" else 32), l_tile
-
-
-def resolve_kernel(params: BatchScoringParams, kernel: str = "auto") -> str:
-    """'auto' -> the pose-chunked v2 kernel wherever its inputs exist:
-    always for elec/vdw, for DFIRE when the type-indexed tables are present
-    (engine.energy_batch.ensure_dfire_types), else the v1 per-pose kernel
-    (which needs the (K, Nr, Nl) dq tensor)."""
-    if kernel != "auto":
-        return kernel
     if params.method != "dfire":
-        return "v2"
-    return "v2" if params.dfire_rec_half is not None else "v1"
-
-
-def cull_subsizes(nr: int, nl: int, r_tile: int, l_tile: int):
-    """Cull sub-box granularity for a complex of (nr, nl) atoms.
-
-    The cull test materializes (G, nR_sub, nL_sub, 3) intermediates; at
-    very large complexes sub-box refinement would dwarf the kernel's own
-    memory (8k x 8k: 2.5 GB).  Fall back to kernel-tile granularity when
-    the fine grid would exceed ~2^25 boxes-pairs per pose-batch of 200."""
-    r_sub = R_SUB if r_tile % R_SUB == 0 else r_tile
-    l_sub = L_SUB if l_tile % L_SUB == 0 else l_tile
-    nr_sub = -(-nr // r_sub)
-    nl_sub = -(-nl // l_sub)
-    if nr_sub * nl_sub * 200 > 2 ** 25:
-        r_sub, l_sub = r_tile, l_tile
-    return r_sub, l_sub
-
-
-def _pad_box_groups(centers, half, n_tiles, group):
-    """Pad sub-box arrays so each kernel tile owns exactly ``group``
-    sub-boxes (-inf half-extents never fire)."""
-    need = n_tiles * group
-    pad = need - centers.shape[0]
-    if pad > 0:
-        centers = np.pad(centers, ((0, pad), (0, 0)))
-        half = np.pad(half, ((0, pad), (0, 0)),
-                      constant_values=-np.inf)
-    return centers, half
-
-
-def rec_box_geometry(rec_coords, r_tile: int, r_sub: int):
-    """Receptor cull-box geometry exactly as make_pallas_energy_fn builds
-    it: sub-boxes of ``r_sub`` atoms padded so each kernel tile owns
-    r_tile/r_sub of them.  Used by the atom-sharded path to compute each
-    shard's geometry with identical semantics (parallel.sharded)."""
-    centers, half = tile_boxes(rec_coords, r_sub)
-    n_r = -(-rec_coords.shape[0] // r_tile)
-    return _pad_box_groups(centers, half, n_r, r_tile // r_sub)
-
-
-def make_pallas_energy_fn(params: BatchScoringParams,
-                          interpret: bool = False,
-                          cull: bool = True,
-                          r_tile: int = R_TILE, l_tile: int = L_TILE,
-                          kernel: str = "auto",
-                          shard_parts: bool = False,
-                          rec_bounds_override=None):
-    """Build energy_fn(params, t, q, a_rec, a_lig) -> (G,) scores.
-
-    The returned closure captures only small host-side geometry constants
-    (tile bounding spheres, ANM mode bounds, bin thresholds); all large
-    tensors flow through the ``params`` pytree argument.  ``kernel``
-    selects the Pallas generation (see resolve_kernel).
-
-    ``shard_parts=True`` builds the receptor-atom-sharded variant instead
-    (parallel.sharded.make_pallas_atom_sharded_fns): ``params`` is ONE
-    shard's slice (all shards share its static shapes), the receptor cull
-    boxes become traced *inputs* rather than captured constants, and the
-    returned ``parts_fn(p_loc, rc_loc, rh_loc, t, q, a_rec, a_lig)``
-    returns the pre-collective ``(raw, iface_rec, iface_lig)`` so the
-    caller can psum/pmax across shards before the bias.
-    """
-    kernel = resolve_kernel(params, kernel)
-    method = params.method
+        raise ValueError("the pair kernel covers DFIRE only; "
+                         f"{params.method!r} runs on the XLA path")
+    for blk in (r_blk, l_blk):
+        if blk < 1 or blk & (blk - 1):
+            raise ValueError(f"kernel block sizes must be a power of two, "
+                             f"got {blk}")
     nr = params.rec_coords.shape[0]
     nl = params.lig_coords.shape[0]
-    # Cull geometry at sub-box granularity (nested in kernel tiles by the
-    # hierarchical rcb order): bounds are OR-reduced to tile granularity
-    # in the traced fn.  Sub-box counts are padded so each kernel tile
-    # owns exactly (tile/sub) sub-boxes (-inf half-extents never fire).
-    r_sub, l_sub = cull_subsizes(nr, nl, r_tile, l_tile)
-    rec_centers, rec_half = tile_boxes(params.rec_coords, r_sub)
-    lig_centers, lig_half = tile_boxes(params.lig_coords, l_sub)
-
-    pad_groups = _pad_box_groups
-    if rec_bounds_override is not None:
-        # Atom-sharded use: the caller passes the FULL receptor's mode
-        # bounds (conservative for every shard) so the cull slack is
-        # identical SPMD code on all shards.
-        rec_bounds = np.asarray(rec_bounds_override)
-    else:
-        rec_bounds = anm_mode_bounds(params.rec_nmodes) if params.use_anm else np.zeros(0)
-    lig_bounds = anm_mode_bounds(params.lig_nmodes) if params.use_anm else np.zeros(0)
-    cutoff = 15.0 if method == "dfire" else 30.0
-    # Interface flags have a far tighter reach than the energy: 2.45 A for
-    # DFIRE (d <= 3.9 on the *scaled* distance 2*sqrt(d2)-1, reference
-    # src/dfire.rs:339) and 3.9 A for DNA/PYDOCK — a second cull mask at
-    # this cutoff lets the kernels skip the interface accumulation on most
-    # energy-active tile-poses.
-    iface_cutoff = ((Cst.INTERFACE_CUTOFF + 1.0) / 2.0 if method == "dfire"
-                    else Cst.INTERFACE_CUTOFF)
+    nr_pad = -(-nr // r_blk) * r_blk
+    nl_pad = -(-nl // l_blk) * l_blk
+    dtype = np.dtype(params.rec_coords.dtype)
+    rc, rh = (jnp.asarray(a, dtype) for a in tile_boxes(params.rec_coords, r_blk))
+    lc, lh = (jnp.asarray(a, dtype) for a in tile_boxes(params.lig_coords, l_blk))
+    rec_bounds = (anm_mode_bounds(params.rec_nmodes) if params.use_anm
+                  else np.zeros(0))
+    lig_bounds = (anm_mode_bounds(params.lig_nmodes) if params.use_anm
+                  else np.zeros(0))
+    rec_anm = params.use_anm and params.rec_nmodes.shape[0] > 0
     # Interface flags feed only the restraint/membrane bias; without
-    # either, the bias is the identity and the kernels skip all interface
-    # work (static flag).
+    # either, the bias is the identity and the kernel skips them.
     need_iface = (params.rec_res_onehot.shape[0] > 0
                   or params.lig_res_onehot.shape[0] > 0
                   or params.rec_num_membrane > 0)
-    if method == "dfire":
-        if kernel == "v1" and params.dfire_dq is None:
-            raise ValueError("pallas v1 DFIRE path needs dfire_mode='steps' "
-                             "params")
-        if kernel == "v2" and params.dfire_rec_half is None:
-            raise ValueError("pallas v2 DFIRE path needs the type-indexed "
-                             "tables (energy_batch.ensure_dfire_types)")
-        # Already trimmed to in-cutoff channels, matched 1:1 with dq /
-        # rec_half channels (energy_batch.dfire_step_tables / _type_tables).
-        thresholds = tuple(
-            float(x) for x in np.asarray(params.dfire_thresholds, np.float64))
-    # Bits-driven far/near split (ops.pallas_energy.V2_FAR_BITS): a third
-    # cull cutoff at the far-split threshold yields per-chunk "near" bits
-    # the kernel branches on instead of an in-kernel min-d2 reduce.
-    near_cut = None
-    if method == "dfire" and kernel == "v2" and _pe.V2_FAR_BITS:
-        split_idx, live = _pe.dfire_far_split(thresholds)
-        if split_idx is not None:
-            near_cut = float(np.sqrt(thresholds[live[split_idx]]))
-    elif method != "dfire" and kernel == "v2" and _pe.V2_EV_FAR_BITS:
-        # Elec/vdw tier split: near bits at the 10 A vdw reach (the energy
-        # bits run at the 30 A elec cutoff) — far chunks take an elec-only
-        # kernel body (reference src/dna.rs:471-512 has the two cutoffs).
-        near_cut = float(Cst.VDW_DIST_CUTOFF)
-    # Three-way split (V2_FAR2): a fourth cutoff at ~11.5 A yields near2
-    # bits; chunks provably beyond it take a quarter-depth subtree.
-    near2_cut = None
-    if near_cut is not None and method == "dfire" and _pe.V2_FAR2:
-        s2_idx, _, live = _pe.dfire_far_split2(thresholds)
-        if s2_idx is not None:
-            near2_cut = float(np.sqrt(thresholds[live[s2_idx]]))
-    n_r = -(-nr // r_tile)
-    n_l = -(-nl // l_tile)
-    rg, lg = r_tile // r_sub, l_tile // l_sub
-    rec_centers, rec_half = pad_groups(rec_centers, rec_half, n_r, rg)
-    lig_centers, lig_half = pad_groups(lig_centers, lig_half, n_l, lg)
-    # Sub-block bits (ops.pallas_energy.V2_SUB_BITS): keep the energy/near
-    # cull bits at r_sub-row granularity on the receptor axis instead of
-    # OR-reducing them to kernel tiles — the kernel then skips (and
-    # far-classifies) per (r_sub x l_tile) sub-block from the same free
-    # SMEM mechanism.  DFIRE v2 only; needs the cull on and finer sub
-    # boxes to exist.
-    bits_rg = (rg if (_pe.V2_SUB_BITS and kernel == "v2"
-                      and method == "dfire" and cull and rg > 1)
-               else 1)
 
-    dtype = np.dtype(params.rec_coords.dtype)
-    rc = jnp.asarray(rec_centers, dtype=dtype)
-    rh = jnp.asarray(rec_half, dtype=dtype)
-    lc = jnp.asarray(lig_centers, dtype=dtype)
-    lh = jnp.asarray(lig_half, dtype=dtype)
-
-    # Re-center so the MXU |r|^2/|l|^2 expansion in the kernel keeps
-    # precision (d2 is translation-invariant; see _tile_distances).
-    center = jnp.asarray(np.asarray(params.rec_coords, dtype=np.float64)
-                         .mean(axis=0).astype(dtype))
-
-    rec_anm = params.use_anm and params.rec_nmodes.shape[0] > 0
-
-    def energy_fn(p: BatchScoringParams, t, q, a_rec, a_lig,
-                  moved=None, prev_scoring=None):
-        """(G,) scores.  Poses are permuted (moved-first, then Morton order
-        of the translation) before the kernel call and the scores inverse
-        -permuted after — semantically free, twice useful:
-
-        * moved-first packs poses skipped by the reference's moved||step==0
-          rescoring gate (src/glowworm.rs:61-72) into whole pose chunks the
-          kernels never touch (their cull bits are zeroed and their stored
-          scores pass through);
-        * Morton order makes each pose chunk spatially coherent, so the
-          chunk-granularity cull bits (OR over the chunk) and the in-kernel
-          exact-distance gates fire far more often.
-        """
-        # LIGHTDOCK_POSE_ORDER=none disables the Morton sort (measurement
-        # toggle, scripts/bench_kernel_opts.py); moved-first packing stays.
-        import os as _os
-        use_morton = _os.environ.get("LIGHTDOCK_POSE_ORDER",
-                                     "morton") != "none"
+    def energy_fn(p: BatchScoringParams, t, q, a_rec, a_lig, moved=None,
+                  prev_scoring=None):
         g = t.shape[0]
-        morton = (_morton_key(t) if use_morton
-                  else jnp.arange(g, dtype=jnp.int32))
-        if moved is not None and prev_scoring is not None:
-            order = jnp.lexsort((morton,
-                                 jnp.logical_not(moved).astype(jnp.int32)))
-            inv = jnp.argsort(order)
-            perm = _compute(p, t[order], q[order], a_rec[order],
-                            a_lig[order], moved[order])
-            return jnp.where(moved, perm[inv], prev_scoring)
-        if not use_morton:
-            return _compute(p, t, q, a_rec, a_lig, None)
-        order = jnp.argsort(morton)
-        inv = jnp.argsort(order)
-        perm = _compute(p, t[order], q[order], a_rec[order], a_lig[order],
-                        None)
-        return perm[inv]
-
-    def _compute(p: BatchScoringParams, t, q, a_rec, a_lig, moved,
-                 rc_in=None, rh_in=None, return_parts=False):
-        rc_l = rc if rc_in is None else rc_in
-        rh_l = rh if rh_in is None else rh_in
-        g = t.shape[0]
-        rot = qt.rotation_matrix(q, jnp)                     # (G, 3, 3)
-        # Ligand: rotate + translate + ANM, laid out (G, 3, Nl).
-        # precision='highest': default-precision feeds these tiny-K
-        # matmuls to the MXU in bf16 (~1e-2 relative energy error at
-        # contact, PRECISION_r05 part A); cost is ~3% of the step.
+        rot = qt.rotation_matrix(q, jnp)                      # (G, 3, 3)
+        # Pose transform at full f32 precision (a TF32 product would move
+        # coordinates by ~1e-3 A).
         lig = jnp.einsum("gab,nb->gan", rot, p.lig_coords,
-                         precision="highest")              # (G, 3, Nl)
-        lig = lig + (t - center[None, :])[:, :, None]
+                         precision="highest") + t[:, :, None]
         if p.use_anm and p.lig_nmodes.shape[0] > 0:
             lig = lig + jnp.einsum("gk,knc->gcn", a_lig, p.lig_nmodes,
                                    precision="highest")
-        # Receptor: ANM only, laid out (G, Nr, 3) — atoms on the sublane
-        # axis so narrow receptor tiles are legal (ops.pallas_energy).
-        # Rigid receptors stay (1, Nr, 3) for the v2 kernel (every pose
-        # shares the block; the broadcast over poses is free in-kernel).
-        rec_base = p.rec_coords - center[None, :]
+        rec = p.rec_coords.T[None]                            # (1, 3, Nr)
         if rec_anm:
-            rec_all = rec_base[None] + jnp.einsum("gk,knc->gnc", a_rec,
-                                                  p.rec_nmodes,
-                                                  precision="highest")
-        elif kernel == "v2":
-            rec_all = rec_base[None]
-        else:
-            rec_all = jnp.broadcast_to(rec_base[None], (g, nr, 3))
+            rec = rec + jnp.einsum("gk,knc->gcn", a_rec, p.rec_nmodes,
+                                   precision="highest")
+        rec = jnp.pad(rec, ((0, 0), (0, 0), (0, nr_pad - nr)))
+        lig = jnp.pad(lig, ((0, 0), (0, 0), (0, nl_pad - nl)))
+        rtypes = jnp.pad(p.atom_types_rec.astype(jnp.int32)
+                         * (C.DFIRE_NUM_ATOM_TYPES * NUM_SLOTS),
+                         (0, nr_pad - nr))
+        ltypes = jnp.pad(p.atom_types_lig.astype(jnp.int32) * NUM_SLOTS,
+                         (0, nl_pad - nl))
+        table = slot_table(p.potential.astype(t.dtype), p.dist_to_bins)
 
-        cuts = (cutoff, iface_cutoff)
-        if near_cut is not None:
-            cuts = cuts + (near_cut,)
-            if near2_cut is not None:
-                cuts = cuts + (near2_cut,)
-        # SMEM budget guard for sub-block bits: the packed act (+near) bit
-        # vectors grow bits_rg-fold; fall back to tile bits when the total
-        # prefetch footprint would crowd SMEM (static per trace: g known).
-        brg = bits_rg
-        if brg > 1:
-            p_blk_est = _pe.dfire_pose_block(g)
-            cw = -(-(-(-g // p_blk_est)) // 32)
-            n_bit_arrays = 2 if near_cut is not None else 1
-            smem_bytes = (n_r * brg * n_l * cw * 4 * n_bit_arrays
-                          + n_r * n_l * (-(-g // 32)) * 4)
-            if smem_bytes > 512 * 1024:
-                brg = 1
         if cull:
-            rs = pose_slack(a_rec, rec_bounds) if p.use_anm else jnp.zeros(g, dtype)
-            ls = pose_slack(a_lig, lig_bounds) if p.use_anm else jnp.zeros(g, dtype)
-            fine = cull_mask_boxes(rc_l, rh_l, lc, lh, t, rot, rs, ls, cuts)
-
-            def coarsen(a):  # OR-reduce sub-boxes to kernel tiles
-                return a.reshape(n_r, rg, n_l, lg, g).max(axis=(1, 3))
-
-            def coarsen_l(a):  # OR-reduce ligand sub-boxes only: the
-                # receptor axis keeps r_sub-row bit granularity
-                return (a.reshape(n_r, rg, n_l, lg, g).max(axis=3)
-                        .reshape(n_r * rg, n_l, g))
-
-            coarse = [coarsen(a) for a in fine]
-            if brg > 1:
-                act_sub = coarsen_l(fine[0])
-                near_sub = (coarsen_l(fine[2]) if near_cut is not None
-                            else None)
+            rs = pose_slack(a_rec, rec_bounds) if p.use_anm else jnp.zeros(g, t.dtype)
+            ls = pose_slack(a_lig, lig_bounds) if p.use_anm else jnp.zeros(g, t.dtype)
+            act = cull_mask_boxes(rc, rh, lc, lh, t, rot, rs, ls,
+                                  np.sqrt(C.DFIRE_DIST_CUTOFF2))
         else:
-            assert brg == 1  # bits_rg > 1 requires cull=True at build time
-            act = jnp.ones((n_r, n_l, g), dtype=jnp.int32)
-            coarse = [act] * len(cuts)
-        act, act_iface = coarse[0], coarse[1]
-        near = coarse[2] if near_cut is not None else None
-        near2 = coarse[3] if len(cuts) > 3 else None
-
+            act = jnp.ones((g, nr_pad // r_blk, nl_pad // l_blk), jnp.int32)
         if moved is not None:
-            gate = moved.astype(act.dtype)[None, None, :]
-            act = act * gate
-            act_iface = act_iface * gate
-            if near is not None:
-                # Unmoved poses never force the full near path; their raw
-                # rows may select far bins but are discarded by the
-                # moved-gate where() in energy_fn.
-                near = near * gate
-            if near2 is not None:
-                near2 = near2 * gate
-            if brg > 1:
-                act_sub = act_sub * gate
-                if near_sub is not None:
-                    near_sub = near_sub * gate
+            act = act * moved.astype(jnp.int32)[:, None, None]
 
-        if kernel == "v2":
-            # Energy-cutoff bits at pose-chunk granularity (OR over each
-            # P-pose chunk); interface bits stay per pose.
-            p_blk = (_pe.dfire_pose_block(g) if method == "dfire"
-                     else _pe.ev_pose_block(g))
-            if (method != "dfire" and rec_anm and r_tile >= 64
-                    and "LIGHTDOCK_V2_POSE_BLOCK" not in _os.environ):
-                # The double-buffered (G, 64, 3) receptor block plus a
-                # 16-pose d2 chunk exceed the 16M scoped-VMEM limit
-                # (measured: 17.2M at 1azp).  r64 keeps the round-4 pose
-                # block 8; wider pose blocks pair with r_tile=32
-                # (FARM_r05 A/B).
-                p_blk = min(p_blk, 8)
-            gp = -(-g // p_blk) * p_blk
-
-            def chunked(a):
-                a = jnp.pad(a, ((0, 0), (0, 0), (0, gp - g)))
-                return a.reshape(a.shape[0], n_l, gp // p_blk,
-                                 p_blk).max(axis=-1)
-
-            near2_c = None
-            if brg > 1:
-                act_c = chunked(act_sub)
-                near_c = chunked(near_sub) if near_sub is not None else None
-                # far2 is not composed with sub-block bits (sub bits are a
-                # measured loss; keep the matrix small).
-            else:
-                act_c = chunked(act)
-                near_c = chunked(near) if near is not None else None
-                if near2 is not None:
-                    near2_c = chunked(near2)
-            if method == "dfire":
-                raw, ifr, ifl = dfire_pairs_pallas_v2(
-                    rec_all, lig, p.dfire_rec_half, p.dfire_lig_onehot,
-                    thresholds, act_c, act_iface, interpret=interpret,
-                    r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
-                    near_chunks=near_c, p_block=p_blk, bits_rg=brg,
-                    near2_chunks=near2_c)
-            else:
-                raw, ifr, ifl = elec_vdw_pairs_pallas_v2(
-                    rec_all, lig, p.ele_rec, p.ele_lig,
-                    p.vdw_c_rec, p.vdw_c_lig, p.vdw_r_rec, p.vdw_r_lig,
-                    act_c, act_iface, interpret=interpret,
-                    r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
-                    near_chunks=near_c, p_block=p_blk)
-        elif method == "dfire":
-            raw, ifr, ifl = dfire_pairs_pallas(
-                rec_all, lig, p.dfire_dq, thresholds, act, act_iface,
-                interpret=interpret, r_tile=r_tile, l_tile=l_tile,
-                need_iface=need_iface)
-        else:
-            raw, ifr, ifl = elec_vdw_pairs_pallas(
-                rec_all, lig, p.ele_rec, p.ele_lig, p.vdw_c_rec, p.vdw_c_lig,
-                p.vdw_r_rec, p.vdw_r_lig, act, act_iface,
-                interpret=interpret, r_tile=r_tile, l_tile=l_tile,
-                need_iface=need_iface)
-
-        if return_parts:
-            # Pre-collective parts for the atom-sharded path: raw pair
-            # sums to psum, per-atom interface flags to combine.
-            return (raw,
-                    None if ifr is None else ifr[:, :nr],
-                    None if ifl is None else ifl[:, :nl])
+        raw, ifr, ifl = dfire_pairs(
+            rec.astype(t.dtype), lig.astype(t.dtype), rtypes, ltypes,
+            table, act, nr=nr, nl=nl, need_iface=need_iface,
+            interpret=interpret, r_blk=r_blk, l_blk=l_blk)
         score = finalize_raw(p, raw)
-        if ifr is None:
-            # need_iface=False: no restraints, no membrane — the bias is
-            # the identity and the kernel returned dummy flags.
-            return score
-        return _bias(p, score, ifr[:, :nr], ifl[:, :nl], jnp)
+        if need_iface:
+            score = _bias(p, score, ifr[:, :nr].astype(t.dtype),
+                          ifl[:, :nl].astype(t.dtype), jnp)
+        if moved is not None and prev_scoring is not None:
+            score = jnp.where(moved, score, prev_scoring)
+        return score
 
-    # VMEM-fit pose cap for pose_chunked_energy.  The v2 kernels keep the
-    # whole (G, 3->8, l_tile) ligand block VMEM-resident (constant index
-    # map, single buffer): G*8*l_tile*4 bytes — 1600 poses at l_tile=256
-    # (the measured-best 1ppe farm chunk, 13.1M) is the proven fit, so the
-    # cap scales that exact budget by l_tile (l512 -> 800).  With receptor
-    # ANM the (G, r_tile, 3) per-pose receptor block binds harder: 200
-    # poses at r_tile=64 is the measured compile fit (1600 OOMed at 100M).
-    max_poses = None
-    if kernel == "v2":
-        # Multi-ligand-tile grids double-buffer the ligand block (the l
-        # index map varies); single-tile ligands (1ppe's 256) keep one
-        # buffer — measured: 1600 poses at l256/n_l=1 fits (13.1M), 800
-        # at l512/n_l=7 OOMs at 18.75M.
-        bufs = 2 if n_l > 1 else 1
-        max_poses = max(64, (13_107_200 // (8 * l_tile * 4 * bufs)) // 8 * 8)
-        if rec_anm:
-            max_poses = min(max_poses,
-                            max(64, int(200 * 64 / r_tile) // 8 * 8))
-
-    if shard_parts:
-        def parts_fn(p_loc, rc_loc, rh_loc, t, q, a_rec, a_lig):
-            return _compute(p_loc, t, q, a_rec, a_lig, None,
-                            rc_in=rc_loc, rh_in=rh_loc, return_parts=True)
-        parts_fn.max_poses_per_call = max_poses
-        return parts_fn
-    energy_fn.max_poses_per_call = max_poses
     return energy_fn

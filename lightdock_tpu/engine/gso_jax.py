@@ -1,4 +1,4 @@
-"""Batched GSO device engine (JAX): the TPU-native optimizer core.
+"""Batched GSO device engine (JAX): the optimizer core.
 
 The reference iterates 200 glowworm objects sequentially (reference
 src/swarm.rs:66-126); here the swarm is a struct-of-arrays pytree with a
@@ -10,8 +10,8 @@ vision update.  The full run is ``jax.lax.scan`` over steps, jitted once.
 Semantics notes (all mirror the reference exactly):
 - Unmoved glowworms keep their score (reference src/glowworm.rs:61-69);
   recomputing them on device yields bit-identical values because the
-  computation is deterministic, so the batched engine simply scores all G
-  every step — uniform work is faster than divergence on TPU.
+  computation is deterministic, so the XLA path simply scores all G every
+  step (uniform work); the kernel path uses the gate to skip them.
 - Moves use the *pre-move* snapshot of all poses (src/swarm.rs:74-83).
 - Roulette selection reproduces the strict `sum < r` crossing rule
   (src/glowworm.rs:114-126) via a masked cumulative sum.
@@ -139,7 +139,7 @@ def batch_energy_chunked(params: BatchScoringParams, t, q, a_rec, a_lig,
     gate, src/glowworm.rs:61-72) are accepted for interface compatibility
     and ignored: on the dense XLA path uniform recomputation is free-by
     -construction (a recomputed score of an unmoved pose is bit-identical
-    to the stored one), while the Pallas path uses them to skip work.
+    to the stored one), while the kernel path uses them to skip work.
     """
     g = t.shape[0]
     if chunk <= 0 or chunk >= g:
@@ -258,7 +258,7 @@ def run_swarm(params: BatchScoringParams, state: SwarmState, randoms,
     """Scan ``steps`` GSO iterations; randoms is (steps, G).
 
     Returns (final_state, StepOutput stacked over steps).  ``energy_fn``
-    overrides the XLA pair-energy path (e.g. the Pallas kernels from
+    overrides the XLA pair-energy path (e.g. the DFIRE pair kernel from
     engine.energy_pallas).
     """
     if energy_fn is None:
@@ -278,33 +278,15 @@ def run_swarm_jit(params, state, randoms, energy_chunk: int = 0):
 # -- host-facing runner -----------------------------------------------------
 
 
-# Measured on one v5e chip (SMALL_r05.json pins the crossover the r4
-# bracket left open, VERDICT r4 item 8).  The discriminator is NOT pair
-# count alone but receptor ANM x method:
-# - rigid receptor: Pallas wins at EVERY measured size — truncated-1ppe
-#   44k pairs 421.0k vs 308.1k, 75k 234.8k vs 184.1k, 154k 263.1k vs
-#   137.4k, 243k 228.0k vs 109.0k; full 1ppe 165.8k vs 78.2k; 1k4c
-#   11.15M pairs is Pallas-only territory (the XLA dq tensor is 0.94 GB).
-# - DFIRE + receptor ANM: the kernel is r_tile=32-locked (r64 + channel
-#   blocks exceed scoped VMEM) and loses the refetch halving — XLA wins
-#   at 1czy (67.9k pairs: 274.6k vs 102.3k) and still edges 2uuy (670k
-#   pairs: 60.2k vs 57.0k); beyond ~1M pairs the XLA dq HBM traffic
-#   dominates, so Pallas takes over.
-# - elec/vdw + receptor ANM: r64 is legal -> Pallas wins (1azp 554k
-#   pairs: 116.9k vs 84.3k).
-PALLAS_AUTO_MIN_PAIRS = 30_000  # rigid threshold (measured win at 44k)
-PALLAS_AUTO_DFIRE_ANM_MIN_PAIRS = 1_000_000
-
-
 def pick_energy_mode(params: BatchScoringParams) -> str:
-    """Resolve energy_mode='auto' from the measured crossover map above."""
-    if jax.default_backend() != "tpu":
-        return "xla"
-    n_pairs = params.rec_coords.shape[0] * params.lig_coords.shape[0]
-    rec_anm = params.use_anm and params.rec_nmodes.shape[0] > 0
-    if params.method == "dfire" and rec_anm:
-        return "pallas" if n_pairs > PALLAS_AUTO_DFIRE_ANM_MIN_PAIRS else "xla"
-    return "pallas" if n_pairs >= PALLAS_AUTO_MIN_PAIRS else "xla"
+    """Resolve energy_mode='auto': the DFIRE pair kernel on a GPU, else the
+    XLA path.  On the H100 the kernel was faster than XLA end to end, or
+    level with it within the spread, at every shape measured, from 640 x
+    32 atoms to the 1k4c shape, with poses clear of the receptor and in
+    contact (PERF.md)."""
+    if params.method == "dfire" and jax.default_backend() == "gpu":
+        return "pallas"
+    return "xla"
 
 
 def mixed_precision_energy(energy_fn, state_dtype, energy_dtype):
@@ -339,49 +321,21 @@ class GsoJaxRunner:
                  output_directory: Optional[str] = None,
                  dtype=jnp.float32, energy_chunk: int = 0,
                  energy_mode: str = "xla", cull: bool = True,
-                 rng_mode: str = "reference", dq_bf16: bool = False,
-                 r_tile: Optional[int] = None, l_tile: Optional[int] = None,
-                 interpret: Optional[bool] = None,
-                 energy_dtype=None):
+                 rng_mode: str = "reference",
+                 interpret: bool = False, energy_dtype=None):
         from ..utils.rng import uniform_f64_stream
-
-        if interpret is None:
-            # Mosaic only compiles on TPU; everywhere else (CPU tests, CLI
-            # --platform cpu) the kernels run in interpret mode.
-            interpret = jax.default_backend() != "tpu"
 
         if energy_mode == "auto":
             energy_mode = pick_energy_mode(params)
-        self._pallas_kernel = None
-        if energy_mode in ("pallas", "pallas_v1"):
-            self._pallas_kernel = "v1" if energy_mode == "pallas_v1" else "auto"
-            if energy_mode == "pallas" and params.method == "dfire":
-                # v2 kernel: type-indexed tables (O(Nr+Nl)); the O(Nr*Nl*K)
-                # dq tensor is redundant — drop it so it is never uploaded.
-                from .energy_batch import ensure_dfire_types
-                params = ensure_dfire_types(params)
-                params = dataclasses.replace(params, dfire_dq=None)
+        if energy_mode not in ("xla", "pallas"):
+            raise ValueError(f"unknown energy_mode {energy_mode!r}")
+        self.energy_mode = energy_mode
+        if energy_mode == "pallas":
             # Spatially sort the atom axes so the conservative tile cull
             # bites (semantics unchanged; energy_pallas.spatial_sort_params).
-            from .energy_pallas import (pick_tiles, resolve_kernel,
-                                        spatial_sort_params, validate_tiles)
-            auto_r, auto_l = pick_tiles(
-                params, resolve_kernel(params, self._pallas_kernel))
-            r_tile = auto_r if r_tile is None else r_tile
-            l_tile = auto_l if l_tile is None else l_tile
-            validate_tiles(r_tile, l_tile)
-            params = spatial_sort_params(params, r_tile=r_tile, l_tile=l_tile)
+            from .energy_pallas import spatial_sort_params
+            params = spatial_sort_params(params)
         self.params = device_params(params, dtype=dtype)
-        if dq_bf16 and self.params.dfire_dq is not None:
-            # Speed mode for either energy path: halve the delta-potential
-            # tensor's HBM footprint/bandwidth (it is THE bottleneck of the
-            # XLA path on large complexes).  Per-pair chains upcast to f32
-            # at the baseline term, so only individual table values round
-            # to bf16; relative energy error is ~1e-3 (bf16 mantissa).
-            import dataclasses as _dc
-            self.params = _dc.replace(
-                self.params,
-                dfire_dq=jnp.asarray(self.params.dfire_dq, jnp.bfloat16))
         self.state = init_state(positions, use_anm, anm_rec, anm_lig, dtype=dtype)
         self.seed = seed
         self.use_anm = use_anm
@@ -404,46 +358,29 @@ class GsoJaxRunner:
         e_dtype = jnp.dtype(energy_dtype) if energy_dtype is not None else None
         mixed = e_dtype is not None and e_dtype != jnp.dtype(dtype)
         if mixed:
-            # Mixed-precision scoring (SURVEY §7 precision policy /
-            # PRECISION_r05): swarm state + movement stay at ``dtype``;
-            # the scoring path (params upload + pair energies) runs at
-            # ``energy_dtype``.  On CPU this isolates which precision term
-            # binds the f32 trajectory horizon; params feed nothing but
-            # the energy (movement reads only params.use_anm).
+            # Mixed-precision scoring (SURVEY §7 precision policy): swarm
+            # state + movement stay at ``dtype``; the scoring path (params
+            # upload + pair energies) runs at ``energy_dtype``.  On CPU this
+            # isolates which precision term binds the f32 trajectory
+            # horizon; params feed nothing but the energy (movement reads
+            # only params.use_anm).
             self.params = device_params(params, dtype=e_dtype)
-            if dq_bf16 and self.params.dfire_dq is not None:
-                # Re-apply the bf16 dq compression the earlier upload did
-                # (this re-upload would otherwise silently discard it).
-                self.params = dataclasses.replace(
-                    self.params,
-                    dfire_dq=jnp.asarray(self.params.dfire_dq, jnp.bfloat16))
-        from ..utils.aotcache import AotDispatch, cache_dir_from_env
-        aot_dir = cache_dir_from_env()
-        if energy_mode in ("pallas", "pallas_v1"):
-            from .energy_pallas import (make_pallas_energy_fn,
-                                        pose_chunked_energy)
-            energy_fn = pose_chunked_energy(
-                make_pallas_energy_fn(params, cull=cull,
-                                      r_tile=r_tile, l_tile=l_tile,
-                                      interpret=interpret,
-                                      kernel=self._pallas_kernel))
-            energy_fn = mixed_precision_energy(energy_fn, dtype, e_dtype)
-            self._run_jit = AotDispatch(
-                lambda p, s, r: run_swarm(p, s, r, energy_fn=energy_fn),
-                label=f"gso-{energy_mode}")
-        elif energy_mode == "xla":
-            if mixed or aot_dir is not None:
-                base = functools.partial(batch_energy_chunked,
-                                         chunk=energy_chunk)
-                energy_fn = mixed_precision_energy(base, dtype, e_dtype)
-                self._run_jit = AotDispatch(
-                    lambda p, s, r: run_swarm(p, s, r, energy_fn=energy_fn),
-                    label="gso-xla")
-            else:
-                self._run_jit = functools.partial(
-                    run_swarm_jit, energy_chunk=energy_chunk)
+        if energy_mode == "pallas":
+            from .energy_pallas import make_pallas_energy_fn
+            energy_fn = make_pallas_energy_fn(params, cull=cull,
+                                              interpret=interpret)
         else:
-            raise ValueError(f"unknown energy_mode {energy_mode!r}")
+            energy_fn = functools.partial(batch_energy_chunked,
+                                          chunk=energy_chunk)
+        # The pair-energy function the runs use: (params, t, q, a_rec,
+        # a_lig) -> (G,) scores.
+        self.energy_fn = mixed_precision_energy(energy_fn, dtype, e_dtype)
+        if energy_mode == "xla" and not mixed:
+            self._run_jit = functools.partial(run_swarm_jit,
+                                              energy_chunk=energy_chunk)
+        else:
+            self._run_jit = jax.jit(
+                lambda p, s, r: run_swarm(p, s, r, energy_fn=self.energy_fn))
 
     def load_snapshot(self, path, step: int = None) -> None:
         """Resume from a gso_N.out snapshot (written at ``step``).

@@ -1,1621 +1,212 @@
-"""Pallas TPU kernels for the pairwise-energy hot loop.
+"""DFIRE pair-energy kernel for NVIDIA GPUs (Pallas through Triton), plus
+the host-side tile geometry its spatial cull is built from.
 
-Design (SURVEY §5/§7: the (Nr x Nl) pair matrix is the "big dimension"):
+Design:
 
-* Grid over (receptor tiles, ligand tiles); all G poses processed inside
-  each grid step with a ``fori_loop``.  The per-tile parameter blocks
-  (DFIRE delta-potential tables, AMBER charge/radius vectors) are loaded
-  into VMEM once per (r, l) tile and reused across all G poses — the XLA
-  fallback re-reads them per pose chunk, which is the main bandwidth leak
-  this kernel closes (the DFIRE table tensor is 1.4 GB for 1k4c).
-* DFIRE uses the gather-free step-function form (engine.energy_batch.
-  dfire_step_tables): per pair, a baseline plus <=29 compare+FMA lanes.
-* Conservative spatial culling: a pose is skipped for a tile pair when the
-  rigid-rotated ligand-tile bounding sphere (plus ANM slack) provably
-  cannot come within the interaction cutoff of the receptor-tile sphere —
-  work the reference performs unconditionally (reference
-  src/dfire.rs:325-345 iterates every pair) is never computed.
-* Layouts are chosen so no lane<->sublane relayout happens in the inner
-  loop: the pose index g addresses the *untiled leading* dimension of the
-  (G, 3, N) coordinate blocks (Mosaic forbids dynamic lane indexing), the
-  squared distances use the MXU expansion |r|^2 + |l|^2 - 2 r.l whose
-  column/row factors fall out of ``dot_general`` contractions, per-atom
-  scalars arrive as (Nr, 1) columns / (1, Nl) rows, and interface rows are
-  produced by contraction rather than lane-axis reduction.  Accumulators
-  are outputs with constant index maps, so they stay VMEM-resident for the
-  entire call and are flushed once.
+* Grid over (pose, receptor tile).  Blocks run in parallel, in no order;
+  each one loops over the ligand tiles itself, so nothing carries over
+  between blocks.
+* Culling: a (pose, receptor tile, ligand tile) mask computed by XLA from
+  static tile bounding boxes (``cull_mask_boxes``) marks the tile pairs
+  that may hold an atom pair within the 15 A cutoff; the block skips the
+  others.  The moved-pose gate is folded into the same mask.
+* Per pair: d2 in f32 by direct differences on the CUDA cores (never a
+  dot, which may run in TF32 and move d2 across a bin edge), the
+  reference's bin rule ``trunc(2 sqrt(d2) - 1)`` (reference
+  src/dfire.rs:336-338), and ONE gather from the slot-indexed potential
+  table (``slot_table``: the flat DFIRE table with the distance-to-bin map
+  folded in, 3.4 MB, L2-resident).
+* Reductions: each block writes its partial pose sum and the interface
+  flags of the receptor tile it owns; ligand flags are written per
+  receptor tile and OR-reduced by XLA.  No atomics, so results repeat run
+  to run.
 
-Outputs: raw pair sums (G,), receptor/ligand interface flags (G, N).
-The cheap restraint/membrane bias stays in XLA (energy_batch._bias).
+The pose transform and the restraint/membrane bias stay in XLA
+(engine.energy_pallas).
 """
 
 from __future__ import annotations
 
 import functools
-import os as _os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .. import constants as C
 
-# Receptor tiles are narrow (atoms on sublanes: 8-divisible) — 32 is the
-# measured sweet spot on v5e at 1k4c scale and keeps the (G, r_tile, 3)
-# coordinate blocks' VMEM cost low (lanes pad 3 -> 128, so block bytes are
-# G * r_tile * 128 * 4 regardless of the coordinate axis).  Ligand tiles
-# sit on the lane axis and must be multiples of 128.
-R_TILE = 32
-L_TILE = 128
-LANE = 128
-# Cull-refinement granularity: bounds are evaluated on (R_SUB x L_SUB)
-# sub-boxes (hierarchically nested inside the kernel tiles by rcb_order)
-# and OR-reduced to tile granularity — boxes of 8/32 atoms are much
-# tighter than 32/128-atom tile boxes, so fewer tile-poses activate.
-R_SUB = 8
-L_SUB = 32
+# Block sizes (powers of two, as Triton requires), chosen on the card by a
+# sweep of 32 to 128 atoms a side at the 1ppe and 1k4c shapes (PERF.md).
+# NUM_WARPS and NUM_STAGES were not tuned.
+R_BLK = 32
+L_BLK = 32
+NUM_WARPS = 4
+NUM_STAGES = 1
+
+# Distance slots trunc(2 sqrt(d2) - 1) reachable inside the 15 A cutoff:
+# d2 <= 225 -> slot <= 29.
+NUM_SLOTS = 30
+_TYPES = C.DFIRE_NUM_ATOM_TYPES
 
 
-def _pad_to(x, axis, multiple, value):
-    n = x.shape[axis]
-    pad = (-n) % multiple
-    if pad == 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return jnp.pad(x, widths, constant_values=value)
+def slot_table(potential, dist_to_bins, xp=jnp):
+    """Flat (169 * 169 * NUM_SLOTS,) table T[ta, tb, slot] =
+    potential[(ta * 169 + tb) * 20 + dist_to_bins[slot] - 1]: the
+    reference's two lookups (slot -> bin -> flat table) folded into one
+    gather.  The flat index keeps the reference's arithmetic, so a bin of
+    20 reads the next type pair's first entry as the reference does
+    (clamped at the table's end, like the XLA gather)."""
+    bins = dist_to_bins[:NUM_SLOTS] - 1
+    base = xp.arange(_TYPES * _TYPES)[:, None] * C.DFIRE_NUM_BINS
+    idx = xp.minimum(base + bins[None, :], potential.shape[0] - 1)
+    return potential[idx].reshape(-1)
 
 
-def pack_cull_bits(active):
-    """Bit-pack an (nR, nL, G) 0/1 mask into a FLAT (nR*nL*ceil(G/32),)
-    uint32 vector for SMEM scalar prefetch (bit g%32 of word
-    (r*nL + l)*words + g//32).
+def _dfire_kernel(act_ref, rec_ref, rtype_ref, lig_ref, ltype_ref, table_ref,
+                  raw_ref, *iface_refs, nr, nl, r_blk, l_blk, n_l,
+                  rec_per_pose, need_iface):
+    g = pl.program_id(0)
+    r = pl.program_id(1)
+    rg = g if rec_per_pose else 0
+    rows = pl.ds(r * r_blk, r_blk)
+    rx = rec_ref[rg, 0, rows]
+    ry = rec_ref[rg, 1, rows]
+    rz = rec_ref[rg, 2, rows]
+    rt = rtype_ref[rows]
+    r_ok = (r * r_blk + jnp.arange(r_blk)) < nr
 
-    Kept 1-D on purpose: SMEM arrays are tile-padded per trailing dim, so
-    a (nR, nL, 7) layout would blow the ~1 MB SMEM budget at large grids
-    (e.g. 1k4c with 32-atom receptor tiles pads (107, 26, 7) to
-    (107, 32, 128) = 1.75 MB); the flat vector only pads once.
-    """
-    n_r, n_l, g = active.shape
-    pad = (-g) % 32
-    act = jnp.pad(active.astype(jnp.uint32), ((0, 0), (0, 0), (0, pad)))
-    a = act.reshape(n_r, n_l, -1, 32)
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    # each bit set at most once, so sum == bitwise OR
-    return (a << shifts).sum(axis=-1).astype(jnp.uint32).reshape(-1)
+    def tile(l, carry):
+        acc, ifr = carry
+        cols = pl.ds(l * l_blk, l_blk)
 
+        def compute():
+            dx = rx[:, None] - lig_ref[g, 0, cols][None, :]
+            dy = ry[:, None] - lig_ref[g, 1, cols][None, :]
+            dz = rz[:, None] - lig_ref[g, 2, cols][None, :]
+            d2 = dx * dx + dy * dy + dz * dz
+            l_ok = (l * l_blk + jnp.arange(l_blk)) < nl
+            inside = (d2 <= C.DFIRE_DIST_CUTOFF2) & r_ok[:, None] & l_ok[None, :]
+            d = jnp.sqrt(d2) * 2.0 - 1.0
+            # float -> int conversion truncates toward zero, like the
+            # reference's `d as usize` for d > -1.
+            slot = jnp.clip(d.astype(jnp.int32), 0, NUM_SLOTS - 1)
+            idx = rt[:, None] + ltype_ref[cols][None, :] + slot
+            e = plgpu.load(table_ref.at[idx], mask=inside, other=0.0)
+            if not need_iface:
+                return acc + e, ifr
+            close = (inside & (d <= C.INTERFACE_CUTOFF)).astype(jnp.int32)
+            iface_refs[1][g, r, cols] = jnp.max(close, axis=0).astype(jnp.int8)
+            return acc + e, jnp.maximum(ifr, jnp.max(close, axis=1))
 
-def _active(act_ref, n_l, words, r, l, g):
-    """Test bit g of the flat packed cull mask for tile (r, l)."""
-    word = act_ref[(r * n_l + l) * words + jax.lax.shift_right_logical(g, 5)]
-    bit = jax.lax.shift_right_logical(word, (g & 31).astype(jnp.uint32))
-    return (bit & jnp.uint32(1)) == jnp.uint32(1)
-
-
-def _tile_distances(rec_ref, lig_ref, g):
-    """(R_TILE, L_TILE) squared distances for pose g.
-
-    Pose g indexes the untiled leading block dimension (Mosaic forbids
-    dynamic lane indexing).  Receptor coordinates are laid out
-    (G, R_TILE, 3) — atoms on *sublanes*, the size-3 coordinate axis on
-    lanes — so ``r_tile`` only needs 8-divisibility (lane-axis blocks must
-    be multiples of 128, which would forbid the narrow receptor tiles the
-    cull wants).  Ligand tiles stay (3, L_TILE) lane-major.  The receptor
-    -side column quantities come out of ``dot_general`` contractions (MXU)
-    instead of lane-axis reductions, so no lane<->sublane relayout is ever
-    emitted:
-
-        d2 = |r|^2_col + |l|^2_row - 2 (rec_mat lig_mat)
-
-    The expansion form loses ~|coord|^2 * eps of precision vs the direct
-    difference; the caller re-centers coordinates to keep that small.
-    """
-    rec_mat = rec_ref[g]                     # (R_TILE, 3)
-    lig_mat = lig_ref[g]                     # (3, L_TILE)
-    ones3 = jnp.ones((3, 1), dtype=rec_mat.dtype)
-    r2 = jax.lax.dot_general(rec_mat * rec_mat, ones3,
-                             (((1,), (0,)), ((), ())),
-                             precision=jax.lax.Precision.HIGHEST,
-                             preferred_element_type=rec_mat.dtype)  # (R_TILE, 1)
-    l2 = (lig_mat * lig_mat).sum(axis=0, keepdims=True)             # (1, L_TILE)
-    cross = jax.lax.dot_general(rec_mat, lig_mat,
-                                (((1,), (0,)), ((), ())),
-                                precision=jax.lax.Precision.HIGHEST,
-                                preferred_element_type=rec_mat.dtype)
-    return r2 + l2 - 2.0 * cross
-
-
-def _tile_distances_exact(rec_ref, lig_ref, g):
-    """Direct-difference squared distances (matches the XLA path's
-    rounding); used by the elec/vdw kernel where 1/d2 amplifies the
-    expansion-form error.  With the (G, R_TILE, 3) receptor layout the
-    per-axis receptor columns are natural static lane slices — no
-    relayout."""
-    rec_mat = rec_ref[g]                     # (R_TILE, 3)
-    lig_mat = lig_ref[g]                     # (3, L_TILE)
-    d2 = None
-    for c in range(3):
-        rcol = rec_mat[:, c:c + 1]            # (R_TILE, 1)
-        diff = rcol - lig_mat[c:c + 1, :]     # (R_TILE, L_TILE)
-        term = diff * diff
-        d2 = term if d2 is None else d2 + term
-    return d2
-
-
-def _tile_distances_aug(rec_ref, lig_ref, g):
-    """d2 tile as ONE MXU contraction of augmented coordinates.
-
-    rec rows are [x y z |r|^2 1 0 0 0]; lig columns are
-    [-2x -2y -2z 1 |l|^2 0 0 0]^T, so the product is
-    |r|^2 + |l|^2 - 2 r.l per pair — same expansion-form rounding as
-    _tile_distances but one dot_general instead of two plus the adds.
-    """
-    return jax.lax.dot_general(rec_ref[g], lig_ref[g],
-                               (((1,), (0,)), ((), ())),
-                               precision=jax.lax.Precision.HIGHEST,
-                               preferred_element_type=rec_ref.dtype)
-
-
-def _pose_onehot(g, g_count, dtype):
-    """(G, 1) column selecting pose g (static-layout scatter helper).
-
-    Mosaic forbids single-row loads/stores at a dynamic sublane index, so
-    per-pose accumulation is expressed as a full-pose-axis masked update:
-    ``acc = max(acc, onehot_g * row)`` touches (G, width) but keeps every
-    index static.
-    """
-    iota = jax.lax.broadcasted_iota(jnp.int32, (g_count, 1), 0)
-    return (iota == g).astype(dtype)
-
-
-def _pose_onehot_row(g, g_count, dtype):
-    """(1, G) row selecting pose g (lane-axis variant of _pose_onehot)."""
-    iota = jax.lax.broadcasted_iota(jnp.int32, (1, g_count), 1)
-    return (iota == g).astype(dtype)
-
-
-def _accumulate_iface(ifr_ref, ifl_ref, close, r, l, g, onehot, onehot_row,
-                      r_tile=R_TILE, l_tile=L_TILE):
-    """OR interface flags into the resident accumulators.
-
-    The receptor accumulator is stored *transposed*, (Nr, G): its per-tile
-    dynamic offset then lands on the sublane axis, which only needs
-    8-divisibility — narrow receptor tiles (r_tile = 8..64) would be
-    illegal as a lane-axis dynamic slice (multiples of 128 required).  The
-    ligand accumulator stays (G, Nl) with l_tile a multiple of 128.
-    """
-    ones_l = jnp.ones((l_tile, 1), dtype=close.dtype)
-    # any over the ligand axis as an (R_TILE, 1) column via MXU contraction
-    col_any_r = (jax.lax.dot_general(close, ones_l, (((1,), (0,)), ((), ())),
-                                     precision=jax.lax.Precision.HIGHEST,
-                                     preferred_element_type=close.dtype) > 0
-                 ).astype(close.dtype)                    # (R_TILE, 1)
-    row_any_l = jnp.max(close, axis=0, keepdims=True)     # (1, l_tile)
-    r_off = pl.multiple_of(r * r_tile, r_tile)
-    l_off = pl.multiple_of(l * l_tile, l_tile)
-    cur_r = ifr_ref[pl.ds(r_off, r_tile), :]
-    ifr_ref[pl.ds(r_off, r_tile), :] = jnp.maximum(cur_r,
-                                                   col_any_r * onehot_row)
-    cur_l = ifl_ref[:, pl.ds(l_off, l_tile)]
-    ifl_ref[:, pl.ds(l_off, l_tile)] = jnp.maximum(cur_l, onehot * row_any_l)
-
-
-# --------------------------------------------------------------------------
-# DFIRE kernel
-# --------------------------------------------------------------------------
-
-
-DFIRE_POSE_CHUNK = 64
-
-
-def _dfire_kernel(thresholds, g_count, r_tile, l_tile, n_l_tiles, need_iface,
-                  act_ref, iface_act_ref, rec_ref, lig_ref, dq_ref,
-                  raw_ref, ifr_ref, ifl_ref, rows_ref):
-    """Per-pose pair math with chunk-deferred scalarization.
-
-    The naive per-pose accumulation ``raw[g] += sum(tile)`` serializes a
-    full (r_tile, l_tile) -> scalar reduction, a vector->scalar move and a
-    lane-broadcast masked RMW into every pose — measured at 1k4c scale
-    that fixed cost dwarfs the actual channel math (~85% of kernel time).
-    Instead each pose only does a cheap sublane reduction to a (1, LANE)
-    row stored at its slot of a VMEM scratch; once per 64-pose chunk a
-    single MXU contraction folds the chunk's rows into (chunk, 1) and one
-    static-slice update adds them to the resident (G, LANE) accumulator.
-    """
-    r = pl.program_id(0)
-    l = pl.program_id(1)
-    words = -(-g_count // 32)
-    chunk = rows_ref.shape[0]
-    dtype = rows_ref.dtype
-
-    @pl.when((r == 0) & (l == 0))
-    def _():
-        raw_ref[...] = jnp.zeros_like(raw_ref)
-        ifr_ref[...] = jnp.zeros_like(ifr_ref)
-        ifl_ref[...] = jnp.zeros_like(ifl_ref)
-
-    iface2 = ((C.INTERFACE_CUTOFF + 1.0) / 2.0) ** 2
-
-    def body(g, _):
-        @pl.when(_active(act_ref, n_l_tiles, words, r, l, g))
-        def _():
-            d2 = _tile_distances_aug(rec_ref, lig_ref, g)
-            # Accumulate at d2's precision even when dq is stored bf16
-            # (each add promotes bf16 -> f32 individually).
-            contrib = dq_ref[0].astype(d2.dtype)
-            for k, s in enumerate(thresholds):
-                if k == 0 or not (s <= C.DFIRE_DIST_CUTOFF2):
-                    continue  # bin 0 is the baseline; s > cutoff never fires
-                contrib = jnp.where(d2 >= s, contrib + dq_ref[k], contrib)
-            in_cut = (d2 <= C.DFIRE_DIST_CUTOFF2).astype(d2.dtype)
-            rows_ref[jnp.remainder(g, chunk)] = (
-                (contrib * in_cut).sum(axis=0, keepdims=True))
-
-            # Interface flags only matter within 2.45 A — a second, far
-            # tighter cull bit skips the accumulator read-modify-writes on
-            # the vast majority of energy-active tile-poses.  With no
-            # restraints and no membrane the flags feed nothing (the bias
-            # is the identity) and are skipped entirely (static).
+        def skip():
             if need_iface:
-                @pl.when(_active(iface_act_ref, n_l_tiles, words, r, l, g))
-                def _():
-                    close = (d2 <= iface2).astype(d2.dtype)
-                    onehot = _pose_onehot(g, g_count, d2.dtype)
-                    onehot_row = _pose_onehot_row(g, g_count, d2.dtype)
-                    _accumulate_iface(ifr_ref, ifl_ref, close, r, l, g,
-                                      onehot, onehot_row, r_tile, l_tile)
+                iface_refs[1][g, r, cols] = jnp.zeros((l_blk,), jnp.int8)
+            return acc, ifr
 
-        return 0
+        return jax.lax.cond(act_ref[g, r, l] != 0, compute, skip)
 
-    ones_l = jnp.ones((l_tile, 1), dtype=dtype)
-    for lo in range(0, g_count, chunk):
-        hi = min(lo + chunk, g_count)
-        # Inactive poses must contribute zero: clear the chunk's rows once
-        # (8 vregs) instead of an else-branch store per inactive pose.
-        rows_ref[...] = jnp.zeros_like(rows_ref)
-        jax.lax.fori_loop(lo, hi, body, 0, unroll=False)
-        sums = jax.lax.dot_general(
-            rows_ref[:, 0, :], ones_l, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=dtype)                  # (chunk, 1)
-        raw_ref[lo:hi, 0:1] += sums[:hi - lo]
+    acc0 = jnp.zeros((r_blk, l_blk), table_ref.dtype)
+    ifr0 = jnp.zeros((r_blk,), jnp.int32)
+    acc, ifr = jax.lax.fori_loop(0, n_l, tile, (acc0, ifr0))
+    raw_ref[g, r] = jnp.sum(acc)
+    if need_iface:
+        iface_refs[0][g, rows] = ifr.astype(jnp.int8)
 
 
-def dfire_pairs_pallas(rec_all, lig_all, dq, thresholds, active, iface_active,
-                       interpret: bool = False,
-                       r_tile: int = R_TILE, l_tile: int = L_TILE,
-                       need_iface: bool = True):
-    """Raw DFIRE pair sums + interface flags for G poses.
+def dfire_pairs(rec, lig, rec_types, lig_types, table, active, *, nr: int,
+                nl: int, need_iface: bool, interpret: bool = False,
+                r_blk: int = R_BLK, l_blk: int = L_BLK):
+    """Raw DFIRE pair sums and interface flags for G poses.
 
-    rec_all: (G, Nr, 3) transformed receptor coordinates (pad value 1e6;
-    atoms on the sublane axis so r_tile only needs 8-divisibility);
-    lig_all: (G, 3, Nl) transformed ligand coordinates; dq: (K, Nr, Nl)
-    delta-potential tables (engine.energy_batch.dfire_step_tables);
-    thresholds: K host floats (static, in-cutoff channels); active /
-    iface_active: (nR, nL, G) int32 cull masks at the energy and interface
-    cutoffs.  Returns (raw (G,), iface_rec (G, Nr), iface_lig (G, Nl)) with
-    padding retained on the atom axes (slice with the true Nr/Nl).
+    rec: (1 or G, 3, Nr_pad) receptor coordinates (one shared copy when
+    the receptor is rigid); lig: (G, 3, Nl_pad); rec_types/lig_types:
+    (Nr_pad,)/(Nl_pad,) int32 offsets into ``table`` (type * 169 * 30 and
+    type * 30); table: ``slot_table``; active: (G, n_r, n_l) int32 cull
+    mask.  ``nr``/``nl`` are the real atom counts (padding never counts).
+    Coordinates, table and sums share one dtype (f32 in production).
+
+    Returns raw (G,), iface_rec (G, Nr_pad) and iface_lig (G, Nl_pad) as
+    int8 0/1 flags (None when ``need_iface`` is False).
+
+    The kernel compiles for NVIDIA GPUs only.  ``interpret=True`` runs it
+    in the Pallas interpreter (tests on the CPU); without it, any other
+    backend is an error rather than a silent fallback.
     """
-    g = lig_all.shape[0]
-    dtype = lig_all.dtype
-    rec_all = _pad_to(rec_all, 1, r_tile, 1e6)
-    lig_all = _pad_to(lig_all, 2, l_tile, -1e6)
-    dq = _pad_to(_pad_to(dq, 1, r_tile, 0.0), 2, l_tile, 0.0)
-    nr, nl = dq.shape[1], dq.shape[2]
-    n_r, n_l = nr // r_tile, nl // l_tile
-    assert active.shape == (n_r, n_l, g), (active.shape, (n_r, n_l, g))
-
-    # Augmented coordinates (see _tile_distances_aug), built in XLA —
-    # cheap O(G N) work outside the kernel.  Width padded 5 -> 8 for MXU
-    # tiling.
-    zc = jnp.zeros((g, nr, 1), dtype)
-    rec_aug = jnp.concatenate(
-        [rec_all, (rec_all * rec_all).sum(-1, keepdims=True),
-         jnp.ones((g, nr, 1), dtype), zc, zc, zc], axis=2)
-    zr = jnp.zeros((g, 1, nl), dtype)
-    lig_aug = jnp.concatenate(
-        [-2.0 * lig_all, jnp.ones((g, 1, nl), dtype),
-         (lig_all * lig_all).sum(1, keepdims=True), zr, zr, zr], axis=1)
-
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the DFIRE pair kernel compiles for NVIDIA GPUs only; pass "
+            f"interpret=True to run it on the {jax.default_backend()!r} "
+            "backend")
+    g = lig.shape[0]
+    nr_pad, nl_pad = rec.shape[2], lig.shape[2]
+    assert nr_pad % r_blk == 0 and nl_pad % l_blk == 0, (nr_pad, nl_pad)
+    n_r, n_l = nr_pad // r_blk, nl_pad // l_blk
+    assert active.shape == (g, n_r, n_l), (active.shape, (g, n_r, n_l))
+    out_shape = [jax.ShapeDtypeStruct((g, n_r), table.dtype)]
+    if need_iface:
+        out_shape += [jax.ShapeDtypeStruct((g, nr_pad), jnp.int8),
+                      jax.ShapeDtypeStruct((g, n_r, nl_pad), jnp.int8)]
     kernel = functools.partial(
-        _dfire_kernel, tuple(float(t) for t in thresholds), g, r_tile, l_tile,
-        n_l, need_iface)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_r, n_l),
-        in_specs=[
-            pl.BlockSpec((g, r_tile, 8), lambda r, l, *_: (0, r, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((g, 8, l_tile), lambda r, l, *_: (0, 0, l),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((dq.shape[0], r_tile, l_tile), lambda r, l, *_: (0, r, l),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((g, LANE), lambda r, l, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((nr, g), lambda r, l, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((g, nl), lambda r, l, *_: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((min(DFIRE_POSE_CHUNK, g), 1, l_tile), lig_all.dtype),
-        ],
-    )
-    raw, ifr, ifl = pl.pallas_call(
+        _dfire_kernel, nr=nr, nl=nl, r_blk=r_blk, l_blk=l_blk, n_l=n_l,
+        rec_per_pose=rec.shape[0] > 1, need_iface=need_iface)
+    outs = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((g, LANE), lig_all.dtype),
-            jax.ShapeDtypeStruct((nr, g), lig_all.dtype),
-            jax.ShapeDtypeStruct((g, nl), lig_all.dtype),
-        ],
-        interpret=interpret,
-    )(pack_cull_bits(active), pack_cull_bits(iface_active),
-      rec_aug, lig_aug, dq)
-    return raw[:, 0], ifr.T, ifl
-
-
-# --------------------------------------------------------------------------
-# DNA / PYDOCK kernel
-# --------------------------------------------------------------------------
-
-
-def _elec_vdw_kernel(g_count, r_tile, l_tile, n_l_tiles, need_iface,
-                     act_ref, iface_act_ref, rec_ref, lig_ref,
-                     qr_ref, ql_ref, vcr_ref, vcl_ref, vrr_ref, vrl_ref,
-                     raw_ref, ifr_ref, ifl_ref, rows_ref):
-    """Per-pose elec+vdw with chunk-deferred scalarization (see
-    _dfire_kernel for the rationale and the rows-scratch scheme)."""
-    r = pl.program_id(0)
-    l = pl.program_id(1)
-    words = -(-g_count // 32)
-    chunk = rows_ref.shape[0]
-    dtype = rows_ref.dtype
-
-    @pl.when((r == 0) & (l == 0))
-    def _():
-        raw_ref[...] = jnp.zeros_like(raw_ref)
-        ifr_ref[...] = jnp.zeros_like(ifr_ref)
-        ifl_ref[...] = jnp.zeros_like(ifl_ref)
-
-    qq = qr_ref[...] * ql_ref[...]            # (R_TILE, 1)*(1, L_TILE)
-    ve = jnp.sqrt(vcr_ref[...] * vcl_ref[...])
-    vr = vrr_ref[...] + vrl_ref[...]
-    vr2 = vr * vr
-
-    def body(g, _):
-        @pl.when(_active(act_ref, n_l_tiles, words, r, l, g))
-        def _():
-            d2 = _tile_distances_exact(rec_ref, lig_ref, g)
-            # Unguarded like the reference (src/dna.rs:481-504): d2 == 0
-            # gives inf, clamped to the elec cutoffs / NaN through the vdw
-            # inf - inf.  Padding atoms sit at +-1e6 so padded pairs never
-            # hit d2 == 0.
-            inv_d2 = 1.0 / d2
-
-            elec = jnp.clip(qq * inv_d2, C.ELEC_MIN_CUTOFF, C.ELEC_MAX_CUTOFF)
-            elec = elec * (d2 <= C.ELEC_DIST_CUTOFF2).astype(d2.dtype)
-
-            p2 = vr2 * inv_d2
-            p6 = p2 * p2 * p2
-            k = jnp.minimum(ve * (p6 * p6 - 2.0 * p6), C.VDW_CUTOFF)
-            k = k * (d2 <= C.VDW_DIST_CUTOFF2).astype(d2.dtype)
-
-            combined = elec * (C.FACTOR / C.EPSILON) + k
-            rows_ref[jnp.remainder(g, chunk)] = combined.sum(axis=0,
-                                                             keepdims=True)
-
-            # 3.9 A interface cutoff vs 30 A energy cutoff: skip the
-            # accumulator read-modify-writes unless the tight cull fires.
-            if need_iface:
-                @pl.when(_active(iface_act_ref, n_l_tiles, words, r, l, g))
-                def _():
-                    close = (d2 <= C.INTERFACE_CUTOFF2).astype(d2.dtype)
-                    onehot = _pose_onehot(g, g_count, d2.dtype)
-                    onehot_row = _pose_onehot_row(g, g_count, d2.dtype)
-                    _accumulate_iface(ifr_ref, ifl_ref, close, r, l, g,
-                                      onehot, onehot_row, r_tile, l_tile)
-
-        return 0
-
-    ones_l = jnp.ones((l_tile, 1), dtype=dtype)
-    for lo in range(0, g_count, chunk):
-        hi = min(lo + chunk, g_count)
-        rows_ref[...] = jnp.zeros_like(rows_ref)
-        jax.lax.fori_loop(lo, hi, body, 0, unroll=False)
-        sums = jax.lax.dot_general(
-            rows_ref[:, 0, :], ones_l, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=dtype)                  # (chunk, 1)
-        raw_ref[lo:hi, 0:1] += sums[:hi - lo]
-
-
-def elec_vdw_pairs_pallas(rec_all, lig_all, ele_rec, ele_lig,
-                          vdw_c_rec, vdw_c_lig, vdw_r_rec, vdw_r_lig,
-                          active, iface_active, interpret: bool = False,
-                          r_tile: int = R_TILE, l_tile: int = L_TILE,
-                          need_iface: bool = True):
-    """Raw elec+vdw pair sums + interface flags for G poses (DNA/PYDOCK).
-
-    Padding atoms carry zero charges and radius 1 at 1e6 coordinates, so
-    every padded pair fails every cutoff.  rec_all is (G, Nr, 3) (atoms on
-    sublanes, see dfire_pairs_pallas); lig_all is (G, 3, Nl).  Returns
-    (raw (G,), iface_rec (G, Nr), iface_lig (G, Nl)) with atom-axis
-    padding retained.
-    """
-    g = lig_all.shape[0]
-    rec_all = _pad_to(rec_all, 1, r_tile, 1e6)
-    lig_all = _pad_to(lig_all, 2, l_tile, -1e6)
-    col = lambda x: _pad_to(x.reshape(-1, 1), 0, r_tile, 0.0)
-    row = lambda x: _pad_to(x.reshape(1, -1), 1, l_tile, 0.0)
-    qr, ql = col(ele_rec), row(ele_lig)
-    vcr, vcl = col(vdw_c_rec), row(vdw_c_lig)
-    vrr = _pad_to(vdw_r_rec.reshape(-1, 1), 0, r_tile, 1.0)
-    vrl = _pad_to(vdw_r_lig.reshape(1, -1), 1, l_tile, 1.0)
-    nr, nl = qr.shape[0], ql.shape[1]
-    n_r, n_l = nr // r_tile, nl // l_tile
-    assert active.shape == (n_r, n_l, g)
-
-    kernel = functools.partial(_elec_vdw_kernel, g, r_tile, l_tile, n_l,
-                               need_iface)
-    col_spec = pl.BlockSpec((r_tile, 1), lambda r, l, *_: (r, 0),
-                            memory_space=pltpu.VMEM)
-    row_spec = pl.BlockSpec((1, l_tile), lambda r, l, *_: (0, l),
-                            memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_r, n_l),
-        in_specs=[
-            pl.BlockSpec((g, r_tile, 3), lambda r, l, *_: (0, r, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((g, 3, l_tile), lambda r, l, *_: (0, 0, l),
-                         memory_space=pltpu.VMEM),
-            col_spec, row_spec, col_spec, row_spec, col_spec, row_spec,
-        ],
-        out_specs=[
-            pl.BlockSpec((g, LANE), lambda r, l, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((nr, g), lambda r, l, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((g, nl), lambda r, l, *_: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((min(DFIRE_POSE_CHUNK, g), 1, l_tile), lig_all.dtype),
-        ],
-    )
-    raw, ifr, ifl = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((g, LANE), lig_all.dtype),
-            jax.ShapeDtypeStruct((nr, g), lig_all.dtype),
-            jax.ShapeDtypeStruct((g, nl), lig_all.dtype),
-        ],
-        interpret=interpret,
-    )(pack_cull_bits(active), pack_cull_bits(iface_active),
-      rec_all, lig_all, qr, ql, vcr, vcl, vrr, vrl)
-    return raw[:, 0], ifr.T, ifl
-
-
-# --------------------------------------------------------------------------
-# v2 kernels: pose-chunked working set + type-indexed DFIRE tables
-# --------------------------------------------------------------------------
-#
-# The v1 kernels loop poses one at a time inside each (r, l) tile: every
-# pose pays a fixed cost (cull-bit test, d2 formation, reduction plumbing)
-# that measured at ~3-5x the actual per-pair math on small complexes —
-# which is why v1 lost to the fused XLA path at the 1ppe flagship shape.
-# v2 processes POSE_BLOCK poses per iteration as the *leading* axis of a
-# (P, r_tile, l_tile) working block: pose p lives on the outer (vreg-group)
-# dimension, so per-pose slices are free, broadcasts of per-tile quantities
-# over poses are zero-copy, and all per-pair math runs on P*r_tile*l_tile
-# elements per VPU op.  Per-pose scalarization disappears entirely: pose
-# sums leave the tile as one (P, 1, 1) lane+sublane reduction added to a
-# (G, 1, 1) resident accumulator at a P-aligned dynamic offset.
-#
-# DFIRE additionally drops the (K, Nr, Nl) dq tensor (O(Nr*Nl*K) HBM — the
-# scale wall, VERDICT round 1 #2): the per-tile delta-potential block is
-# reconstructed in VMEM once per tile pair from the type-factored form
-#     dq_tile[k] = rec_half[k] @ lig_onehot        (exact one-hot selection)
-# with rec_half (K, Nr, TYPE_PAD) and lig_onehot (TYPE_PAD, Nl) both
-# O(atoms).  The matmul is a selection (each output copies one table
-# entry), so Precision.HIGHEST makes it bit-exact vs the gathered dq.
-#
-# Culling happens at pose-chunk granularity for the energy cutoff (bits
-# are OR-reduced over each P-pose chunk) and at per-pose granularity for
-# the much tighter interface cutoff (the v1 masked-onehot RMW accumulation
-# is reused per pose under that bit).
-#
-# The receptor block is (1, Nr, 3) when the receptor is rigid (no receptor
-# ANM: every pose sees the same receptor — 1ppe/1k4c) and (G, Nr, 3) when
-# receptor ANM displaces it per pose; the kernel slices per-chunk rows in
-# the latter case, so ANM workloads (1azp/2uuy/1czy) use the same kernel.
-
-
-# Poses per chunk (the kernels' innermost batch unit); env-overridable for
-# A/B measurement (scripts/bench_farm_opts.py).  DFIRE's measured best is
-# 16 (FARM_r04: 236k->280k aggregate at S=32 with far bits); the elec/vdw
-# kernel keeps the round-2 default 8 (unmeasured at 16).
-V2_POSE_BLOCK_DFIRE = int(_os.environ.get("LIGHTDOCK_V2_POSE_BLOCK", "16"))
-
-
-def dfire_pose_block(g: int) -> int:
-    """Measured-best v2 pose-chunk size for a pose batch of g.
-
-    FARM_r04 (S=32, 6400 poses): block 8 -> 258k, 16 -> 280k, 32 -> 287k
-    aggregate poses/s; small batches keep 16 (less pose padding at
-    G=200).  LIGHTDOCK_V2_POSE_BLOCK overrides."""
-    if "LIGHTDOCK_V2_POSE_BLOCK" in _os.environ:
-        return V2_POSE_BLOCK_DFIRE
-    return 32 if g >= 1024 else 16
-
-
-# The elec/vdw kernel uses the same g-dependent choice (A/B'd by
-# scripts/bench_farm_opts.py --dna; the engine additionally caps the
-# pose block at 8 under receptor-ANM r_tile=64, which is VMEM-bound).
-ev_pose_block = dfire_pose_block
-
-# Far/near tournament split (see _dfire_kernel_v2): when a chunk-tile's
-# minimum d2 proves no pair is nearer than a mid threshold, a shorter
-# far-only select tree (and a static interface skip) replaces the full
-# tournament.  Values are identical either way (tree shape never changes
-# WHICH cumulative bin a pair selects), so this is purely a perf knob.
-# Default OFF until a measured TPU win is recorded; flip per-run with
-# LIGHTDOCK_V2_FAR_SPLIT=1.
-V2_FAR_SPLIT = _os.environ.get("LIGHTDOCK_V2_FAR_SPLIT", "0") not in (
-    "0", "", "false", "False")
-
-# Measurement toggles (scripts/bench_kernel_opts.py): disable the in-kernel
-# exact-min-d2 chunk gate, or replace the balanced select tournament with
-# the serial compare+select chain it superseded, to quantify each
-# optimization's contribution on real hardware.  Both default to the
-# production configuration.
-V2_EXACT_GATE = _os.environ.get("LIGHTDOCK_V2_EXACT_GATE", "1") not in (
-    "0", "", "false", "False")
-# Same knob for the elec/vdw v2 kernel's in-chunk any(d2<=cut) gate.
-# Default OFF: the vector->scalar reduce costs more than the skipped work
-# saves, as in the DFIRE kernel — measured on 1azp DNA (100-step GSO,
-# min-of-3, v5e): gate on 113.4k, gate off 116.9k poses/s (+3.1%).
-V2_EV_EXACT_GATE = _os.environ.get("LIGHTDOCK_V2_EV_EXACT_GATE", "0") not in (
-    "0", "", "false", "False")
-V2_SELECT = _os.environ.get("LIGHTDOCK_V2_SELECT", "tree")
-
-# Sub-block exact gating: within an active chunk-tile, run the selection
-# tournament per (P, 8, l_tile) receptor-row sub-block, each behind its
-# own min-d2 gate (and far/near split when enabled).  Fine-granularity
-# in-cutoff activity is ~2-3x sparser than tile activity (measured by
-# scripts/exp_v2_breakdown.py), so most sub-blocks skip the ~2-op-per-
-# channel tournament entirely at the cost of one extra min-reduction.
-V2_SUBGATE = _os.environ.get("LIGHTDOCK_V2_SUBGATE", "0") not in (
-    "0", "", "false", "False")
-
-# Bits-driven far/near split: derive the near decision from prefetched
-# SMEM box-cull bits (computed on the XLA side at a third cutoff) instead
-# of an in-kernel min-d2 reduce — the reduce's vector->scalar dependence
-# measurably serializes the pipeline (KERNEL_r04/FARM_r04: gates cost ~10%)
-# while SMEM bit reads are free.  Default ON: FARM_r04 far_bits_pb16 =
-# 280.5k aggregate poses/s at S=32 vs 218.2k for the round-3 defaults.
-V2_FAR_BITS = _os.environ.get("LIGHTDOCK_V2_FAR_BITS", "1") not in (
-    "0", "", "false", "False")
-
-# Elec/vdw analogue of V2_FAR_BITS: a third cull cutoff at the 10 A vdw
-# reach (vs the 30 A elec cutoff driving the energy bits) yields per-chunk
-# "near" bits.  Chunks whose bit is 0 provably have no pair inside the vdw
-# cutoff — they run an elec-only body (skipping the p6 chain, the vdw
-# clamp and the interface accumulation, since 3.9 A iface < 10 A) with no
-# in-kernel reduce.  Same free prefetched-SMEM mechanism that bought the
-# DFIRE kernel +18% (FARM_r04).
-V2_EV_FAR_BITS = _os.environ.get("LIGHTDOCK_V2_EV_FAR_BITS", "1") not in (
-    "0", "", "false", "False")
-
-# Three-way far split: a FOURTH cull cutoff (~11.5 A) classifies chunks
-# {near, mid, far2} from prefetched SMEM bits; far2 chunks (provably no
-# pair nearer ~11.5 A) take a quarter-depth select subtree.  Same free
-# bit mechanism as V2_FAR_BITS (+18% measured), one more scalar test.
-V2_FAR2 = _os.environ.get("LIGHTDOCK_V2_FAR2", "0") not in (
-    "0", "", "false", "False")
-
-# Sub-block cull bits: keep the box-cull bits at sub-box granularity on
-# the receptor axis (R_SUB=8 rows per bit instead of one bit per r_tile
-# rows) so the kernel skips/fars at 4x finer granularity with the SAME
-# free SMEM-bit mechanism — no in-kernel reduce (lesson 1), just more
-# scalar bit tests.  Measured in-cutoff activity at 8-row granularity is
-# ~2-3x sparser than at tile granularity (scripts/exp_v2_breakdown.py).
-V2_SUB_BITS = _os.environ.get("LIGHTDOCK_V2_SUB_BITS", "0") not in (
-    "0", "", "false", "False")
-
-# Work-list grid (VERDICT r4 item 9): replace the (n_r, n_l) grid with a
-# 1-D grid over a compacted, prefetched list of ACTIVE chunk-tiles —
-# dead tiles are never scheduled at all instead of being skipped per
-# chunk.  DFIRE v2 only, incompatible with sub-block bits.  Accumulation
-# order changes (active tiles first), so parity vs the 2-D kernel is at
-# tolerance.  Measured (KERNEL_r05/FARM_r05_dfire): neutral at small
-# grids (1ppe: 51 tiles), +3.6% at 1k4c's 749-tile grid where whole-tile
-# deadness is common — so 'auto' (the default) turns it on only for
-# grids of >= V2_WORKLIST_MIN_TILES tile-pairs.  LIGHTDOCK_V2_WORKLIST=
-# 0/1 forces.
-_wl_env = _os.environ.get("LIGHTDOCK_V2_WORKLIST", "auto")
-V2_WORKLIST = _wl_env not in ("0", "", "false", "False", "auto")
-V2_WORKLIST_AUTO = _wl_env == "auto"
-V2_WORKLIST_MIN_TILES = 512
-
-# d2 computation mode for the v2 kernels: 'diff' (direct difference,
-# 9 VPU ops/element, exactly the XLA path's rounding) or 'aug' (one
-# augmented-coordinate MXU contraction per pose — offloads the d2
-# arithmetic to the otherwise-idle MXU; expansion-form rounding, so
-# parity vs XLA is at tolerance, not bit-exact).  Rigid receptor only;
-# falls back to 'diff' under receptor ANM.
-V2_D2 = _os.environ.get("LIGHTDOCK_V2_D2", "diff")
-
-
-def _v2_tile_d2(rec_ref, lig_ref, c0, p_block, rec_per_pose,
-                row0=0, rows=None):
-    """(P, rows, l_tile) squared distances for one pose chunk, by direct
-    difference (exactly the XLA path's rounding; poses on the outer dim,
-    so every broadcast below is native: sublane 1->rows for the ligand
-    rows, lane 1->l_tile for the receptor columns, outer 1->P for a rigid
-    receptor).  ``row0``/``rows`` (static) window the receptor rows so
-    sub-block callers only compute the rows they will use."""
-    if rows is None:
-        rows = rec_ref.shape[1]
-    d2 = None
-    for cc in range(3):
-        lrow = lig_ref[pl.ds(c0, p_block), cc:cc + 1, :]      # (P, 1, L)
-        if rec_per_pose:
-            rcol = rec_ref[pl.ds(c0, p_block),
-                           row0:row0 + rows, cc:cc + 1]       # (P, rows, 1)
-        else:
-            rcol = rec_ref[:, row0:row0 + rows, cc:cc + 1]    # (1, rows, 1)
-        diff = lrow - rcol
-        term = diff * diff
-        d2 = term if d2 is None else d2 + term
-    return d2
-
-
-def _v2_tile_d2_aug(rec_ref, lig_ref, c0, p_block):
-    """(P, r_tile, l_tile) squared distances via one MXU contraction per
-    pose: rec rows [x y z 1] x lig columns [-2x -2y -2z (|l|^2+|r|^2?)]
-    cannot carry both norms in rank-4, so use rank-5 augmented factors
-
-        rec_aug = [x, y, z, |r|^2, 1]         (R, 5)
-        lig_aug = [-2x, -2y, -2z, 1, |l|^2]   (P, 5, L)
-
-    whose product is |r|^2 + |l|^2 - 2 r.l per pair (the expansion form;
-    the caller re-centers coordinates so the cancellation error stays
-    small).  Rigid receptor only."""
-    dtype = rec_ref.dtype
-    rec = rec_ref[0]                                      # (R, 3)
-    ones_r = jnp.ones(rec.shape[:1] + (1,), dtype)
-    r2 = jax.lax.dot_general(rec * rec, jnp.ones((3, 1), dtype),
-                             (((1,), (0,)), ((), ())),
-                             precision=jax.lax.Precision.HIGHEST,
-                             preferred_element_type=dtype)  # (R, 1)
-    rec_aug = jnp.concatenate([rec, r2, ones_r], axis=1)    # (R, 5)
-    lig = lig_ref[pl.ds(c0, p_block), :, :]                 # (P, 3, L)
-    l2 = (lig * lig).sum(axis=1, keepdims=True)             # (P, 1, L)
-    ones_l = jnp.ones_like(l2)
-    lig_aug = jnp.concatenate([-2.0 * lig, ones_l, l2], axis=1)  # (P, 5, L)
-    return jax.lax.dot_general(
-        jnp.broadcast_to(rec_aug[None], (p_block,) + rec_aug.shape), lig_aug,
-        (((2,), (1,)), ((0,), (0,))),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=dtype)                       # (P, R, L)
-
-
-def _v2_store_pose_sums(raw_ref, cm, c0, p_block):
-    """Fold (P, r_tile, l_tile) contributions to per-pose scalars and add
-    them to the (G, 1, 1) resident accumulator: one lane reduction, one
-    sublane reduction, one P-aligned dynamic-slice add — no per-pose
-    scalarization."""
-    sums = cm.sum(axis=2, keepdims=True).sum(axis=1, keepdims=True)  # (P,1,1)
-    cur = raw_ref[pl.ds(c0, p_block), :, :]
-    raw_ref[pl.ds(c0, p_block), :, :] = cur + sums
-
-
-def _v2_iface(iface_act_ref, ifr_ref, ifl_ref, d2, iface2, r, l, c0,
-              p_block, g_count, n_l_tiles, r_tile, l_tile,
-              row0=0, rows=None):
-    """Chunk-level interface accumulation.
-
-    The per-pose bits are conservative (bit 0 proves the pose has no pair
-    within the interface cutoff in this tile, i.e. its flags rows are all
-    zero), so accumulating the whole chunk when ANY pose's bit is set is
-    exact and replaces P masked-onehot RMWs with one aligned (P, 1, L)
-    read-max-write for the ligand side (ifl is stored (G, 1, Nl): the
-    pose offset lands on the outer dim, the l-offset is 128-aligned).
-    The receptor side keeps the cheap (rows, G) masked-onehot RMW per
-    pose (its tile is ~10x smaller than the ligand's).  ``row0``/``rows``
-    (static) window the receptor rows for sub-block callers whose d2 only
-    covers rows [row0, row0+rows) of the tile."""
-    if rows is None:
-        rows = r_tile
-    gwords = -(-g_count // 32)
-    any_bit = None
-    for p in range(p_block):
-        b = _active(iface_act_ref, n_l_tiles, gwords, r, l, c0 + p)
-        any_bit = b if any_bit is None else (any_bit | b)
-
-    @pl.when(any_bit)
-    def _():
-        close = (d2 <= iface2).astype(d2.dtype)            # (P, rows, L)
-        row = close.max(axis=1, keepdims=True)             # (P, 1, L)
-        l_off = pl.multiple_of(l * l_tile, l_tile)
-        cur = ifl_ref[pl.ds(c0, p_block), :, pl.ds(l_off, l_tile)]
-        ifl_ref[pl.ds(c0, p_block), :, pl.ds(l_off, l_tile)] = (
-            jnp.maximum(cur, row))
-        col = close.max(axis=2, keepdims=True)             # (P, rows, 1)
-        r_off = pl.multiple_of(r * r_tile + row0, rows)
-        for p in range(p_block):
-            onehot_row = _pose_onehot_row(c0 + p, g_count, d2.dtype)
-            cur_r = ifr_ref[pl.ds(r_off, rows), :]
-            ifr_ref[pl.ds(r_off, rows), :] = jnp.maximum(
-                cur_r, col[p] * onehot_row)
-
-
-def _v2_tile_any(act_ref, n_l_tiles, cwords, r, l, bits_rg=1):
-    """OR of this tile pair's chunk-activity words (cheap whole-tile skip).
-    With sub-block bits (bits_rg > 1) the tile owns bits_rg bit-rows;
-    all of them are OR'd (a handful of scalar SMEM loads per grid step)."""
-    acc = None
-    for si in range(bits_rg):
-        base = ((r * bits_rg + si) * n_l_tiles + l) * cwords
-        for i in range(cwords):
-            w = act_ref[base + i]
-            acc = w if acc is None else (acc | w)
-    return acc != jnp.uint32(0)
-
-
-def dfire_live_channels(thresholds):
-    """Channel indices that can fire inside the distance cutoff (channels
-    whose threshold exceeds the cutoff are trimmed at table build; keep
-    the guard for hand-built params)."""
-    return [k for k, s in enumerate(thresholds)
-            if k == 0 or s <= C.DFIRE_DIST_CUTOFF2]
-
-
-def dfire_far_split(thresholds):
-    """(split, live): the live-channel index of the far/near boundary
-    (~8 A, must sit beyond the interface cutoff) or None when the channel
-    count is too small to benefit.  Shared by the kernel and by the host
-    side that derives near-cull bits, so both always agree."""
-    live = dfire_live_channels(thresholds)
-    iface2 = ((C.INTERFACE_CUTOFF + 1.0) / 2.0) ** 2
-    if len(live) < 10:
-        return None, live
-    cands = [m for m in range(2, len(live) - 2)
-             if thresholds[live[m]] > iface2]
-    if not cands:
-        return None, live
-    return min(cands, key=lambda m: abs(thresholds[live[m]] - 64.0)), live
-
-
-def dfire_far_split2(thresholds):
-    """The second (far2) split index for the three-way classification:
-    the live-channel index nearest ~11.5 A (132.25 A^2), the geometric
-    midpoint of the ~8 A first split and the 15 A cutoff.  Returns None
-    unless it sits usefully past the first split (at least one channel
-    strictly between the two splits, >= 2 channels beyond the second).
-    Shared by the kernel and the host cull side."""
-    split, live = dfire_far_split(thresholds)
-    if split is None:
-        return None, split, live
-    cands = [m for m in range(split + 2, len(live) - 2)]
-    if not cands:
-        return None, split, live
-    return (min(cands, key=lambda m: abs(thresholds[live[m]] - 132.25)),
-            split, live)
-
-
-def _dfire_v2_tile_body(thresholds, g_count, r_tile, l_tile, n_l_tiles,
-                        need_iface, rec_per_pose, n_k, far_bits, p_block,
-                        bits_rg, far2, r, l,
-                        act_ref, iface_act_ref, near_ref, near2_ref,
-                        rec_ref, lig_ref, rh_ref, loh_ref, raw_ref,
-                        ifr_ref, ifl_ref, dq_scr):
-    """One active chunk-tile's full DFIRE v2 work — shared by the 2-D
-    grid kernel (r, l from program ids) and the work-list kernel (r, l
-    from prefetched SMEM).  ``if True:`` preserves the original body
-    indentation."""
-    n_chunks = g_count // p_block
-    cwords = -(-n_chunks // 32)
-    dtype = raw_ref.dtype
-    iface2 = ((C.INTERFACE_CUTOFF + 1.0) / 2.0) ** 2
-    live = dfire_live_channels(thresholds)
-    sub_rows = r_tile // bits_rg
-    if True:
-        # Reconstruct the tile's delta-potential block from the type
-        # factorization: exact one-hot selection per channel (HIGHEST),
-        # then prefix-sum the channels in ascending order so dq_scr[k]
-        # holds the CUMULATIVE potential at bin k — the same f32 addition
-        # order the select-add chain used, so values are bit-identical.
-        for k in range(n_k):
-            dq_scr[k] = jax.lax.dot_general(
-                rh_ref[k], loh_ref[...], (((1,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=dtype)
-        for i in range(1, len(live)):
-            dq_scr[live[i]] = dq_scr[live[i]] + dq_scr[live[i - 1]]
-
-        def leaf(k, d2, row0):
-            """(1, rows, l_tile) cumulative-potential block for channel k,
-            windowed to the receptor rows d2 covers (row0 static)."""
-            rows = d2.shape[1]
-            return jnp.broadcast_to(
-                dq_scr[k:k + 1, row0:row0 + rows, :], d2.shape)
-
-        def select_tree(d2, lo, hi, row0=0):
-            """Cumulative-potential value for the bin of d2 among live
-            channels [lo, hi): a balanced tournament of selects — 2 VPU
-            ops per channel instead of the 3 of a compare+add+select
-            chain, and no serial dependence between channels."""
-            if hi - lo == 1:
-                return leaf(live[lo], d2, row0)
-            mid = (lo + hi) // 2
-            return jnp.where(d2 >= thresholds[live[mid]],
-                             select_tree(d2, mid, hi, row0),
-                             select_tree(d2, lo, mid, row0))
-
-        def select_chain(d2, lo, hi, row0=0):
-            """The serial compare+select chain the tournament replaced
-            (kept behind LIGHTDOCK_V2_SELECT=chain for measurement):
-            ascending thresholds, so the last taken select wins — the
-            identical cumulative bin, with a serial dependence per
-            channel."""
-            acc = leaf(live[lo], d2, row0)
-            for i in range(lo + 1, hi):
-                k = live[i]
-                acc = jnp.where(d2 >= thresholds[k], leaf(k, d2, row0), acc)
-            return acc
-
-        select_fn = select_tree if V2_SELECT != "chain" else select_chain
-
-        # Far/near split: measured on 1ppe (scripts/exp_v2_breakdown.py),
-        # ~1/3 of exact-gate-active chunk-tiles contain NO pair closer than
-        # ~8 A — those only ever select among the far channels, so a short
-        # far-only tree (and a static interface skip: iface2 < t_split)
-        # replaces the full tournament there.  Values are identical: tree
-        # shape never changes WHICH cumulative bin a pair selects.
-        split = None
-        if far_bits or (V2_FAR_SPLIT and V2_EXACT_GATE):
-            split, _ = dfire_far_split(thresholds)
-        split2 = None
-        if far_bits and far2:
-            split2, _, _ = dfire_far_split2(thresholds)
-
-        def store_contrib(d2, in_cut, lo, c0, row0=0):
-            contrib = select_fn(d2, lo, len(live), row0).astype(dtype)
-            _v2_store_pose_sums(raw_ref, contrib * in_cut.astype(dtype),
-                                c0, p_block)
-
-        def chunk_inner_subgate(d2, c0):
-            """Energy accumulation with per-(P, 8, l_tile) sub-block gates:
-            the tournament and pose-sum RMW run only for receptor-row
-            sub-blocks holding at least one in-cutoff pair; the interface
-            accumulation stays at chunk level (its own activity bits are
-            far sparser)."""
-            for si in range(r_tile // 8):
-                d2s = d2[:, si * 8:(si + 1) * 8, :]
-                dmin_s = jnp.min(d2s)
-                row0 = si * 8
-
-                @pl.when(dmin_s <= C.DFIRE_DIST_CUTOFF2)
-                def _(d2s=d2s, dmin_s=dmin_s, row0=row0):
-                    in_cut = d2s <= C.DFIRE_DIST_CUTOFF2
-                    if split is None:
-                        store_contrib(d2s, in_cut, 0, c0, row0)
-                    else:
-                        near_s = dmin_s < thresholds[live[split]]
-
-                        @pl.when(near_s)
-                        def _():
-                            store_contrib(d2s, in_cut, 0, c0, row0)
-
-                        @pl.when(jnp.logical_not(near_s))
-                        def _():
-                            store_contrib(d2s, in_cut, split, c0, row0)
-            if need_iface:
-                _v2_iface(iface_act_ref, ifr_ref, ifl_ref, d2,
-                          iface2, r, l, c0, p_block, g_count,
-                          n_l_tiles, r_tile, l_tile)
-
-        def chunk_inner(d2, dmin, c0):
-            if V2_SUBGATE and r_tile % 8 == 0 and r_tile > 8:
-                chunk_inner_subgate(d2, c0)
-                return
-            in_cut = d2 <= C.DFIRE_DIST_CUTOFF2
-            if split is None:
-                store_contrib(d2, in_cut, 0, c0)
-                if need_iface:
-                    _v2_iface(iface_act_ref, ifr_ref, ifl_ref, d2,
-                              iface2, r, l, c0, p_block, g_count,
-                              n_l_tiles, r_tile, l_tile)
-            else:
-                near_any = dmin < thresholds[live[split]]
-
-                @pl.when(near_any)
-                def _():
-                    store_contrib(d2, in_cut, 0, c0)
-                    if need_iface:
-                        _v2_iface(iface_act_ref, ifr_ref, ifl_ref,
-                                  d2, iface2, r, l, c0, p_block,
-                                  g_count, n_l_tiles, r_tile,
-                                  l_tile)
-
-                @pl.when(jnp.logical_not(near_any))
-                def _():
-                    # Every in-cutoff pair is >= t_split: the far
-                    # subtree selects the identical bin, and no
-                    # pair can be inside iface2 (< t_split).
-                    store_contrib(d2, in_cut, split, c0)
-
-        def tile_d2(c0):
-            if V2_D2 == "aug" and not rec_per_pose:
-                return _v2_tile_d2_aug(rec_ref, lig_ref, c0, p_block)
-            return _v2_tile_d2(rec_ref, lig_ref, c0, p_block, rec_per_pose)
-
-        def chunk_body_sub(c, _):
-            """Sub-block-bits chunk body (bits_rg > 1): one act (and near)
-            bit per (sub_rows x l_tile) receptor sub-block per pose chunk,
-            straight from prefetched SMEM — bits_rg-times finer skipping
-            than tile bits with NO in-kernel reduce (lesson 1: scalar bit
-            tests are free, vector->scalar gates are not).  d2 is computed
-            per sub-block inside its own branch, so an inactive sub-block
-            costs only the scalar bit test.  Pose sums accumulate per
-            sub-block (bits_rg RMWs per chunk instead of one), so the f32
-            addition order differs from the tile-level kernel: parity vs
-            XLA is at tolerance, like V2_SUBGATE."""
-            c0 = pl.multiple_of(c * p_block, p_block)
-            for si in range(bits_rg):
-                row0 = si * sub_rows
-                ri = r * bits_rg + si
-                is_act = _active(act_ref, n_l_tiles, cwords, ri, l, c)
-
-                def sub_d2(row0=row0):
-                    return _v2_tile_d2(rec_ref, lig_ref, c0, p_block,
-                                       rec_per_pose, row0, sub_rows)
-
-                if far_bits and split is not None:
-                    is_near = _active(near_ref, n_l_tiles, cwords, ri, l, c)
-
-                    @pl.when(is_act & is_near)
-                    def _(row0=row0, sub_d2=sub_d2):
-                        d2 = sub_d2()
-                        store_contrib(d2, d2 <= C.DFIRE_DIST_CUTOFF2, 0,
-                                      c0, row0)
-                        if need_iface:
-                            _v2_iface(iface_act_ref, ifr_ref, ifl_ref, d2,
-                                      iface2, r, l, c0, p_block, g_count,
-                                      n_l_tiles, r_tile, l_tile,
-                                      row0, sub_rows)
-
-                    @pl.when(is_act & jnp.logical_not(is_near))
-                    def _(row0=row0, sub_d2=sub_d2):
-                        # Near bit 0 PROVES no pair in this sub-block is
-                        # closer than t_split: far-only subtree, identical
-                        # bins, and no pair can be inside iface2.
-                        d2 = sub_d2()
-                        store_contrib(d2, d2 <= C.DFIRE_DIST_CUTOFF2,
-                                      split, c0, row0)
-                else:
-                    @pl.when(is_act)
-                    def _(row0=row0, sub_d2=sub_d2):
-                        d2 = sub_d2()
-                        store_contrib(d2, d2 <= C.DFIRE_DIST_CUTOFF2, 0,
-                                      c0, row0)
-                        if need_iface:
-                            _v2_iface(iface_act_ref, ifr_ref, ifl_ref, d2,
-                                      iface2, r, l, c0, p_block, g_count,
-                                      n_l_tiles, r_tile, l_tile,
-                                      row0, sub_rows)
-            return 0
-
-        def chunk_body(c, _):
-            if far_bits and split is not None:
-                # Bits-driven far/near split: the near decision comes from
-                # the prefetched SMEM box bits (computed on the XLA side
-                # with the same boxes as the energy cull), so no in-kernel
-                # vector->scalar min reduce serializes the pipeline.  The
-                # near bit is conservative: bit 0 PROVES no pair in this
-                # chunk-tile is closer than thresholds[live[split]], so the
-                # far-only subtree selects the identical bin and no pair
-                # can be inside iface2 (< t_split).
-                c0 = pl.multiple_of(c * p_block, p_block)
-                is_act = _active(act_ref, n_l_tiles, cwords, r, l, c)
-                is_near = _active(near_ref, n_l_tiles, cwords, r, l, c)
-
-                @pl.when(is_act & is_near)
-                def _():
-                    d2 = tile_d2(c0)
-                    in_cut = d2 <= C.DFIRE_DIST_CUTOFF2
-                    store_contrib(d2, in_cut, 0, c0)
-                    if need_iface:
-                        _v2_iface(iface_act_ref, ifr_ref, ifl_ref, d2,
-                                  iface2, r, l, c0, p_block, g_count,
-                                  n_l_tiles, r_tile, l_tile)
-
-                if split2 is not None:
-                    # Three-way classification: mid chunks (no pair nearer
-                    # t_split, maybe one nearer t_split2) take the half
-                    # subtree; far2 chunks (provably no pair nearer
-                    # t_split2) the quarter subtree.  near=1 implies
-                    # near2=1 by construction (same box test, smaller
-                    # cutoff), so the three branches partition is_act.
-                    is_near2 = _active(near2_ref, n_l_tiles, cwords, r, l, c)
-
-                    @pl.when(is_act & jnp.logical_not(is_near) & is_near2)
-                    def _():
-                        d2 = tile_d2(c0)
-                        store_contrib(d2, d2 <= C.DFIRE_DIST_CUTOFF2,
-                                      split, c0)
-
-                    @pl.when(is_act & jnp.logical_not(is_near2))
-                    def _():
-                        d2 = tile_d2(c0)
-                        store_contrib(d2, d2 <= C.DFIRE_DIST_CUTOFF2,
-                                      split2, c0)
-                else:
-                    @pl.when(is_act & jnp.logical_not(is_near))
-                    def _():
-                        d2 = tile_d2(c0)
-                        in_cut = d2 <= C.DFIRE_DIST_CUTOFF2
-                        store_contrib(d2, in_cut, split, c0)
-                return 0
-
-            @pl.when(_active(act_ref, n_l_tiles, cwords, r, l, c))
-            def _():
-                c0 = pl.multiple_of(c * p_block, p_block)
-                d2 = tile_d2(c0)
-                if not V2_EXACT_GATE:
-                    chunk_inner(d2, jnp.min(d2), c0)
-                    return
-                # ONE min-reduction feeds both exact gates as scalar
-                # compares (a second full-tile any() measurably lost).
-                dmin = jnp.min(d2)
-
-                # Exact-distance gate: the box cull is conservative
-                # (~0.8 active at 1ppe scale where one ligand tile spans
-                # the whole molecule), but only ~0.7 of chunk-tiles have
-                # ANY pair inside the cutoff — skip the selection tree,
-                # accumulation and interface work for the rest.
-                @pl.when(dmin <= C.DFIRE_DIST_CUTOFF2)
-                def _():
-                    chunk_inner(d2, dmin, c0)
-            return 0
-
-        body = chunk_body_sub if bits_rg > 1 else chunk_body
-        jax.lax.fori_loop(0, n_chunks, body, 0, unroll=False)
-
-
-def _dfire_kernel_v2(thresholds, g_count, r_tile, l_tile, n_l_tiles,
-                     need_iface, rec_per_pose, n_k, far_bits, p_block,
-                     bits_rg, far2,
-                     act_ref, iface_act_ref, near_ref, near2_ref, rec_ref,
-                     lig_ref, rh_ref, loh_ref, raw_ref, ifr_ref, ifl_ref,
-                     dq_scr):
-    r = pl.program_id(0)
-    l = pl.program_id(1)
-    n_chunks = g_count // p_block
-    cwords = -(-n_chunks // 32)
-
-    @pl.when((r == 0) & (l == 0))
-    def _():
-        raw_ref[...] = jnp.zeros_like(raw_ref)
-        ifr_ref[...] = jnp.zeros_like(ifr_ref)
-        ifl_ref[...] = jnp.zeros_like(ifl_ref)
-
-    @pl.when(_v2_tile_any(act_ref, n_l_tiles, cwords, r, l, bits_rg))
-    def _():
-        _dfire_v2_tile_body(thresholds, g_count, r_tile, l_tile, n_l_tiles,
-                            need_iface, rec_per_pose, n_k, far_bits,
-                            p_block, bits_rg, far2, r, l,
-                            act_ref, iface_act_ref, near_ref, near2_ref,
-                            rec_ref, lig_ref, rh_ref, loh_ref, raw_ref,
-                            ifr_ref, ifl_ref, dq_scr)
-
-
-def _dfire_kernel_v2_wl(thresholds, g_count, r_tile, l_tile, n_l_tiles,
-                        need_iface, rec_per_pose, n_k, far_bits, p_block,
-                        far2,
-                        act_ref, iface_act_ref, near_ref, near2_ref,
-                        wlr_ref, wll_ref, nact_ref, rec_ref,
-                        lig_ref, rh_ref, loh_ref, raw_ref, ifr_ref, ifl_ref,
-                        dq_scr):
-    """Work-list DFIRE v2 kernel (V2_WORKLIST): a 1-D grid over a
-    prefetched compacted list of ACTIVE chunk-tiles.  Index maps read
-    (r, l) from SMEM, so dead tiles are never scheduled — no block DMA,
-    no loop issue; padding steps alias the last active tile's blocks
-    (same index -> Pallas skips the refetch) and are skipped by the
-    i < n_active gate.  Accumulation order follows list order (active
-    tiles first), so pose sums are tolerance-equal to the 2-D kernel,
-    not bit-identical."""
-    i = pl.program_id(0)
-    r = wlr_ref[i]
-    l = wll_ref[i]
-
-    @pl.when(i == 0)
-    def _():
-        raw_ref[...] = jnp.zeros_like(raw_ref)
-        ifr_ref[...] = jnp.zeros_like(ifr_ref)
-        ifl_ref[...] = jnp.zeros_like(ifl_ref)
-
-    @pl.when(i < nact_ref[0])
-    def _():
-        _dfire_v2_tile_body(thresholds, g_count, r_tile, l_tile, n_l_tiles,
-                            need_iface, rec_per_pose, n_k, far_bits,
-                            p_block, 1, far2, r, l,
-                            act_ref, iface_act_ref, near_ref, near2_ref,
-                            rec_ref, lig_ref, rh_ref, loh_ref, raw_ref,
-                            ifr_ref, ifl_ref, dq_scr)
-
-
-def dfire_pairs_pallas_v2(rec_all, lig_all, rec_half, lig_onehot, thresholds,
-                          active_chunks, iface_active,
-                          interpret: bool = False,
-                          r_tile: int = R_TILE, l_tile: int = L_TILE,
-                          need_iface: bool = True, near_chunks=None,
-                          p_block: int | None = None, bits_rg: int = 1,
-                          near2_chunks=None, worklist: bool | None = None):
-    """Raw DFIRE pair sums + interface flags for G poses (v2 kernel).
-
-    rec_all: (1, Nr, 3) rigid receptor or (G, Nr, 3) with receptor ANM;
-    lig_all: (G, 3, Nl) transformed ligand coordinates; rec_half
-    (K, Nr, TYPE_PAD) / lig_onehot (TYPE_PAD, Nl): the type-factored
-    delta-potential tables (engine.energy_batch.dfire_type_tables);
-    active_chunks: (nR*bits_rg, nL, ceil(G/P)) chunk-granularity cull bits
-    (``bits_rg`` bit-rows per receptor kernel tile — sub-block bits when
-    > 1, each covering r_tile/bits_rg receptor rows); iface_active:
-    (nR, nL, G) per-pose interface-cutoff bits (always tile granularity).
-    Returns (raw (G,), iface_rec (G, Nr), iface_lig (G, Nl)) with atom
-    padding retained (slice with the true Nr/Nl).
-    """
-    g = lig_all.shape[0]
-    if p_block is None:
-        p_block = dfire_pose_block(g)
-    gp = -(-g // p_block) * p_block
-    dtype = lig_all.dtype
-    rec_per_pose = rec_all.shape[0] != 1
-    # Pose padding: far-away coordinates make every padded pose miss every
-    # cutoff; its raw/iface rows are sliced off below.
-    lig_all = _pad_to(lig_all, 0, p_block, 1e6)
-    if rec_per_pose:
-        rec_all = _pad_to(rec_all, 0, p_block, 1e6)
-    rec_all = _pad_to(rec_all, 1, r_tile, 1e6)
-    lig_all = _pad_to(lig_all, 2, l_tile, -1e6)
-    rec_half = _pad_to(rec_half, 1, r_tile, 0.0)
-    lig_onehot = _pad_to(lig_onehot, 1, l_tile, 0.0)
-    nr, nl = rec_half.shape[1], lig_onehot.shape[1]
-    n_r, n_l = nr // r_tile, nl // l_tile
-    n_k = rec_half.shape[0]
-    type_pad = rec_half.shape[2]
-    n_chunks = gp // p_block
-    assert r_tile % bits_rg == 0 and (r_tile // bits_rg) % 8 == 0, (
-        r_tile, bits_rg)
-    assert active_chunks.shape == (n_r * bits_rg, n_l, n_chunks), (
-        active_chunks.shape, (n_r * bits_rg, n_l, n_chunks))
-    iface_active = _pad_to(iface_active, 2, p_block, 0)
-    assert iface_active.shape == (n_r, n_l, gp)
-    far_bits = near_chunks is not None
-    if far_bits:
-        assert near_chunks.shape == (n_r * bits_rg, n_l, n_chunks), (
-            near_chunks.shape)
-        near_packed = pack_cull_bits(near_chunks)
-    else:
-        # Dummy scalar-prefetch word (the kernel never reads it).
-        near_packed = jnp.zeros((1,), jnp.uint32)
-    far2 = far_bits and near2_chunks is not None
-    if far2:
-        assert near2_chunks.shape == (n_r * bits_rg, n_l, n_chunks), (
-            near2_chunks.shape)
-        near2_packed = pack_cull_bits(near2_chunks)
-    else:
-        near2_packed = jnp.zeros((1,), jnp.uint32)
-
-    # Without interface work the (Nr, G)/(G, Nl) resident accumulators
-    # would still cost VMEM (15 MB at 8k x 8k scale) — shrink to dummies.
-    ifr_shape = (nr, gp) if need_iface else (8, LANE)
-    ifl_shape = (gp, 1, nl) if need_iface else (8, 1, LANE)
-    rec_block = (rec_all.shape[0] if rec_per_pose else 1, r_tile, 3)
-    out_shape = [
-        jax.ShapeDtypeStruct((gp, 1, 1), dtype),
-        jax.ShapeDtypeStruct(ifr_shape, dtype),
-        jax.ShapeDtypeStruct(ifl_shape, dtype),
-    ]
-    scratch = [pltpu.VMEM((n_k, r_tile, l_tile), dtype)]
-
-    if worklist is None:
-        worklist = V2_WORKLIST or (V2_WORKLIST_AUTO
-                                   and n_r * n_l >= V2_WORKLIST_MIN_TILES)
-    use_wl = worklist and bits_rg == 1
-    if use_wl:
-        # Compacted active-tile list: active tiles first (stable, so the
-        # r-major locality survives); padding entries alias the LAST
-        # active tile, so their blocks are already resident and the
-        # i < n_active gate skips the body.
-        nt = n_r * n_l
-        tile_any = (active_chunks > 0).any(axis=2).reshape(nt)
-        order = jnp.argsort(jnp.logical_not(tile_any).astype(jnp.int32),
-                            stable=True).astype(jnp.int32)
-        n_active = tile_any.sum().astype(jnp.int32)
-        wl_r = (order // n_l).astype(jnp.int32)
-        wl_l = (order % n_l).astype(jnp.int32)
-        last = jnp.maximum(n_active - 1, 0)
-        idx = jnp.arange(nt, dtype=jnp.int32)
-        wl_r = jnp.where(idx < n_active, wl_r, wl_r[last])
-        wl_l = jnp.where(idx < n_active, wl_l, wl_l[last])
-        nact = jnp.reshape(n_active, (1,))
-        kernel = functools.partial(
-            _dfire_kernel_v2_wl, tuple(float(t) for t in thresholds), gp,
-            r_tile, l_tile, n_l, need_iface, rec_per_pose, n_k, far_bits,
-            p_block, far2)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=7,
-            grid=(nt,),
-            in_specs=[
-                pl.BlockSpec(rec_block,
-                             lambda i, a, b, c, d, wr, wl_, n: (0, wr[i], 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((gp, 3, l_tile),
-                             lambda i, a, b, c, d, wr, wl_, n: (0, 0, wl_[i]),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((n_k, r_tile, type_pad),
-                             lambda i, a, b, c, d, wr, wl_, n: (0, wr[i], 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((type_pad, l_tile),
-                             lambda i, a, b, c, d, wr, wl_, n: (0, wl_[i]),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((gp, 1, 1), lambda i, *_: (0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(ifr_shape, lambda i, *_: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(ifl_shape, lambda i, *_: (0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            scratch_shapes=scratch,
-        )
-        raw, ifr, ifl = pl.pallas_call(
-            kernel, grid_spec=grid_spec, out_shape=out_shape,
-            interpret=interpret,
-        )(pack_cull_bits(active_chunks), pack_cull_bits(iface_active),
-          near_packed, near2_packed, wl_r, wl_l, nact,
-          rec_all, lig_all, rec_half, lig_onehot)
-        if not need_iface:
-            return raw[:g, 0, 0], None, None
-        return raw[:g, 0, 0], ifr.T[:g], ifl[:g, 0]
-
-    kernel = functools.partial(
-        _dfire_kernel_v2, tuple(float(t) for t in thresholds), gp, r_tile,
-        l_tile, n_l, need_iface, rec_per_pose, n_k, far_bits, p_block,
-        bits_rg, far2)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(n_r, n_l),
-        in_specs=[
-            pl.BlockSpec(rec_block,
-                         lambda r, l, *_: (0, r, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((gp, 3, l_tile), lambda r, l, *_: (0, 0, l),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_k, r_tile, type_pad), lambda r, l, *_: (0, r, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((type_pad, l_tile), lambda r, l, *_: (0, l),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((gp, 1, 1), lambda r, l, *_: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(ifr_shape, lambda r, l, *_: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(ifl_shape, lambda r, l, *_: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=scratch,
-    )
-    raw, ifr, ifl = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
         out_shape=out_shape,
+        grid=(g, n_r),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
-    )(pack_cull_bits(active_chunks), pack_cull_bits(iface_active),
-      near_packed, near2_packed, rec_all, lig_all, rec_half, lig_onehot)
+        name="dfire_pairs",
+    )(active, rec, rec_types, lig, lig_types, table)
+    raw = outs[0].sum(axis=1)
     if not need_iface:
-        return raw[:g, 0, 0], None, None
-    return raw[:g, 0, 0], ifr.T[:g], ifl[:g, 0]
-
-
-def _elec_vdw_kernel_v2(g_count, r_tile, l_tile, n_l_tiles, need_iface,
-                        rec_per_pose, far_bits, p_block,
-                        act_ref, iface_act_ref, near_ref, rec_ref, lig_ref,
-                        qr_ref, ql_ref, vcr_ref, vcl_ref, vrr_ref, vrl_ref,
-                        raw_ref, ifr_ref, ifl_ref):
-    r = pl.program_id(0)
-    l = pl.program_id(1)
-    n_chunks = g_count // p_block
-    cwords = -(-n_chunks // 32)
-    dtype = raw_ref.dtype
-
-    @pl.when((r == 0) & (l == 0))
-    def _():
-        raw_ref[...] = jnp.zeros_like(raw_ref)
-        ifr_ref[...] = jnp.zeros_like(ifr_ref)
-        ifl_ref[...] = jnp.zeros_like(ifl_ref)
-
-    @pl.when(_v2_tile_any(act_ref, n_l_tiles, cwords, r, l))
-    def _():
-        # Per-tile-pair pair parameters, shared by every pose (leading unit
-        # dim: free outer broadcast over the pose axis).
-        qq = (qr_ref[...] * ql_ref[...])[None]            # (1, R, L)
-        ve = jnp.sqrt(vcr_ref[...] * vcl_ref[...])[None]
-        vr = vrr_ref[...] + vrl_ref[...]
-        vr2 = (vr * vr)[None]
-
-        max_cut2 = max(C.ELEC_DIST_CUTOFF2, C.VDW_DIST_CUTOFF2)
-
-        def elec_term(d2):
-            # Unguarded like the reference (src/dna.rs:481-504): d2 == 0
-            # -> inf, clamped for elec / NaN through the vdw inf - inf.
-            inv_d2 = 1.0 / d2
-            elec = jnp.clip(qq * inv_d2, C.ELEC_MIN_CUTOFF,
-                            C.ELEC_MAX_CUTOFF)
-            return elec * (d2 <= C.ELEC_DIST_CUTOFF2).astype(dtype), inv_d2
-
-        def full_body(c0, d2):
-            elec, inv_d2 = elec_term(d2)
-            p2 = vr2 * inv_d2
-            p6 = p2 * p2 * p2
-            k = jnp.minimum(ve * (p6 * p6 - 2.0 * p6), C.VDW_CUTOFF)
-            k = k * (d2 <= C.VDW_DIST_CUTOFF2).astype(dtype)
-            combined = elec * (C.FACTOR / C.EPSILON) + k
-            _v2_store_pose_sums(raw_ref, combined, c0, p_block)
-            if need_iface:
-                _v2_iface(iface_act_ref, ifr_ref, ifl_ref, d2,
-                          C.INTERFACE_CUTOFF2, r, l, c0, p_block,
-                          g_count, n_l_tiles, r_tile, l_tile)
-
-        def elec_only_body(c0, d2):
-            # Near bit 0 PROVES no pair in this chunk-tile is inside the
-            # 10 A vdw cutoff: the vdw term is identically zero (and no
-            # pair can be inside the 3.9 A interface cutoff) — skip the
-            # p6 chain, the clamp and the interface accumulation.
-            elec, _ = elec_term(d2)
-            _v2_store_pose_sums(raw_ref, elec * (C.FACTOR / C.EPSILON),
-                                c0, p_block)
-
-        if far_bits:
-            # Bits-driven vdw/elec tier split (see _dfire_kernel_v2's far
-            # bits): the near decision comes from prefetched SMEM box bits
-            # computed on the XLA side at the vdw cutoff — no in-kernel
-            # vector->scalar reduce serializes the pipeline.
-            def chunk_body(c, _):
-                c0 = pl.multiple_of(c * p_block, p_block)
-                is_act = _active(act_ref, n_l_tiles, cwords, r, l, c)
-                is_near = _active(near_ref, n_l_tiles, cwords, r, l, c)
-
-                @pl.when(is_act & is_near)
-                def _():
-                    d2 = _v2_tile_d2(rec_ref, lig_ref, c0, p_block,
-                                     rec_per_pose)
-                    full_body(c0, d2)
-
-                @pl.when(is_act & jnp.logical_not(is_near))
-                def _():
-                    d2 = _v2_tile_d2(rec_ref, lig_ref, c0, p_block,
-                                     rec_per_pose)
-                    elec_only_body(c0, d2)
-                return 0
-        else:
-            def chunk_body(c, _):
-                @pl.when(_active(act_ref, n_l_tiles, cwords, r, l, c))
-                def _():
-                    c0 = pl.multiple_of(c * p_block, p_block)
-                    d2 = _v2_tile_d2(rec_ref, lig_ref, c0, p_block,
-                                     rec_per_pose)
-
-                    if V2_EV_EXACT_GATE:
-                        # Exact-distance gate (see _dfire_kernel_v2): skip
-                        # the arithmetic + accumulation when no pair is
-                        # inside either cutoff (the box cull is
-                        # conservative).  The DFIRE kernel measured this
-                        # vector->scalar reduce as a net COST (~10%,
-                        # KERNEL_r04); LIGHTDOCK_V2_EV_EXACT_GATE=0 (the
-                        # default) drops it here too.
-                        @pl.when(jnp.any(d2 <= max_cut2))
-                        def _():
-                            full_body(c0, d2)
-                    else:
-                        full_body(c0, d2)
-                return 0
-
-        jax.lax.fori_loop(0, n_chunks, chunk_body, 0, unroll=False)
-
-
-def elec_vdw_pairs_pallas_v2(rec_all, lig_all, ele_rec, ele_lig,
-                             vdw_c_rec, vdw_c_lig, vdw_r_rec, vdw_r_lig,
-                             active_chunks, iface_active,
-                             interpret: bool = False,
-                             r_tile: int = R_TILE, l_tile: int = L_TILE,
-                             need_iface: bool = True, near_chunks=None,
-                             p_block: int | None = None):
-    """Raw elec+vdw pair sums + interface flags for G poses (v2 kernel;
-    DNA/PYDOCK).  rec_all is (1, Nr, 3) rigid or (G, Nr, 3) with receptor
-    ANM; see dfire_pairs_pallas_v2 for the pose-chunk scheme and padding
-    semantics (padded atoms carry zero charges / radius 1 at +-1e6).
-    near_chunks (optional, same shape as active_chunks): per-chunk
-    vdw-cutoff bits — chunks with bit 0 run an elec-only body
-    (V2_EV_FAR_BITS)."""
-    g = lig_all.shape[0]
-    if p_block is None:
-        p_block = ev_pose_block(g)
-    gp = -(-g // p_block) * p_block
-    dtype = lig_all.dtype
-    rec_per_pose = rec_all.shape[0] != 1
-    lig_all = _pad_to(lig_all, 0, p_block, 1e6)
-    if rec_per_pose:
-        rec_all = _pad_to(rec_all, 0, p_block, 1e6)
-    rec_all = _pad_to(rec_all, 1, r_tile, 1e6)
-    lig_all = _pad_to(lig_all, 2, l_tile, -1e6)
-    col = lambda x: _pad_to(x.reshape(-1, 1), 0, r_tile, 0.0)
-    row = lambda x: _pad_to(x.reshape(1, -1), 1, l_tile, 0.0)
-    qr, ql = col(ele_rec), row(ele_lig)
-    vcr, vcl = col(vdw_c_rec), row(vdw_c_lig)
-    vrr = _pad_to(vdw_r_rec.reshape(-1, 1), 0, r_tile, 1.0)
-    vrl = _pad_to(vdw_r_lig.reshape(1, -1), 1, l_tile, 1.0)
-    nr, nl = qr.shape[0], ql.shape[1]
-    n_r, n_l = nr // r_tile, nl // l_tile
-    n_chunks = gp // p_block
-    assert active_chunks.shape == (n_r, n_l, n_chunks)
-    iface_active = _pad_to(iface_active, 2, p_block, 0)
-    far_bits = near_chunks is not None
-    if far_bits:
-        assert near_chunks.shape == (n_r, n_l, n_chunks), near_chunks.shape
-        near_packed = pack_cull_bits(near_chunks)
-    else:
-        # Dummy scalar-prefetch word (the kernel never reads it).
-        near_packed = jnp.zeros((1,), jnp.uint32)
-
-    kernel = functools.partial(_elec_vdw_kernel_v2, gp, r_tile, l_tile, n_l,
-                               need_iface, rec_per_pose, far_bits, p_block)
-    ifr_shape = (nr, gp) if need_iface else (8, LANE)
-    ifl_shape = (gp, 1, nl) if need_iface else (8, 1, LANE)
-    col_spec = pl.BlockSpec((r_tile, 1), lambda r, l, *_: (r, 0),
-                            memory_space=pltpu.VMEM)
-    row_spec = pl.BlockSpec((1, l_tile), lambda r, l, *_: (0, l),
-                            memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_r, n_l),
-        in_specs=[
-            pl.BlockSpec((rec_all.shape[0] if rec_per_pose else 1, r_tile, 3),
-                         lambda r, l, *_: (0, r, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((gp, 3, l_tile), lambda r, l, *_: (0, 0, l),
-                         memory_space=pltpu.VMEM),
-            col_spec, row_spec, col_spec, row_spec, col_spec, row_spec,
-        ],
-        out_specs=[
-            pl.BlockSpec((gp, 1, 1), lambda r, l, *_: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(ifr_shape, lambda r, l, *_: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(ifl_shape, lambda r, l, *_: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    raw, ifr, ifl = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((gp, 1, 1), dtype),
-            jax.ShapeDtypeStruct(ifr_shape, dtype),
-            jax.ShapeDtypeStruct(ifl_shape, dtype),
-        ],
-        interpret=interpret,
-    )(pack_cull_bits(active_chunks), pack_cull_bits(iface_active),
-      near_packed, rec_all, lig_all, qr, ql, vcr, vcl, vrr, vrl)
-    if not need_iface:
-        return raw[:g, 0, 0], None, None
-    return raw[:g, 0, 0], ifr.T[:g], ifl[:g, 0]
+        return raw, None, None
+    return raw, outs[1], outs[2].max(axis=1)
 
 
 # --------------------------------------------------------------------------
-# Conservative tile culling
+# Conservative tile culling (host geometry + traced mask)
 # --------------------------------------------------------------------------
 
 
-def rcb_order(coords: np.ndarray, tile) -> np.ndarray:
+def rcb_order(coords: np.ndarray, tile: int) -> np.ndarray:
     """Recursive-coordinate-bisection atom permutation, tile-aware.
 
     Splits the atom set along its widest axis at a multiple-of-``tile``
     boundary nearest the median, recursing until each contiguous chunk
-    holds at most ``tile`` atoms — so every kernel tile is a compact
-    spatial cluster *by construction* (Morton runs can straddle octant
-    boundaries; measured on 1k4c this cuts the 32-atom tile radius from
-    21.7 to 18.3 A and the active pose-tile fraction from 0.49 to 0.32).
-
-    ``tile`` may be a descending tuple (e.g. ``(32, 8)``): the recursion
-    first produces compact ``tile[0]``-chunks, then keeps bisecting INSIDE
-    each chunk at the finer granularities — so sub-boxes used for cull
-    refinement nest inside compact kernel tiles (a flat fine-granularity
-    RCB would let kernel tiles straddle cuts and go diffuse).
-    Returns the permutation indices (N,).
+    holds at most ``tile`` atoms, so every kernel tile is a compact spatial
+    cluster by construction.  Returns the permutation indices (N,).
     """
-    tiles = tuple(tile) if isinstance(tile, (tuple, list)) else (tile,)
     coords = np.asarray(coords, dtype=np.float64)
     n = coords.shape[0]
     out = np.empty(n, dtype=np.int64)
     pos = 0
 
-    def rec(idx, level):
+    def rec(idx):
         nonlocal pos
         m = idx.size
-        t = tiles[level]
-        if m <= t:
-            if level + 1 < len(tiles):
-                rec(idx, level + 1)
-            else:
-                out[pos:pos + m] = idx
-                pos += m
+        if m <= tile:
+            out[pos:pos + m] = idx
+            pos += m
             return
         c = coords[idx]
         axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
         order = idx[np.argsort(c[:, axis], kind="stable")]
-        left_tiles = (-(-m // t)) // 2
-        cut = left_tiles * t
-        rec(order[:cut], level)
-        rec(order[cut:], level)
+        cut = ((-(-m // tile)) // 2) * tile
+        rec(order[:cut])
+        rec(order[cut:])
 
-    rec(np.arange(n), 0)
+    rec(np.arange(n))
     return out
-
-
-def morton_order(coords: np.ndarray, bits: int = 5) -> np.ndarray:
-    """Spatially-coherent atom permutation (Z-order curve).
-
-    Tile bounding spheres are only tight when consecutive atoms are close
-    in space; PDB chain order is partially coherent, a Morton sort makes
-    tiles compact regardless of input order.  Returns the permutation
-    indices (N,).
-    """
-    coords = np.asarray(coords, dtype=np.float64)
-    if coords.shape[0] == 0:
-        return np.zeros(0, dtype=np.int64)
-    lo = coords.min(axis=0)
-    span = np.maximum(coords.max(axis=0) - lo, 1e-9)
-    q = np.minimum(((coords - lo) / span * (2 ** bits - 1)).astype(np.int64),
-                   2 ** bits - 1)
-    code = np.zeros(coords.shape[0], dtype=np.int64)
-    for b in range(bits):
-        for axis in range(3):
-            code |= ((q[:, axis] >> b) & 1) << (3 * b + axis)
-    return np.argsort(code, kind="stable")
-
-
-def tile_geometry(coords: np.ndarray, tile: int):
-    """Static per-tile bounding spheres (centers (nT, 3), radii (nT,)) over
-    real atoms; all-padding tiles get radius -inf so they never activate."""
-    coords = np.asarray(coords, dtype=np.float64)
-    n = coords.shape[0]
-    pad = (-n) % tile
-    real = np.ones(n + pad, dtype=bool)
-    real[n:] = False
-    c = np.pad(coords, ((0, pad), (0, 0)))
-    c_t = c.reshape(-1, tile, 3)
-    real_t = real.reshape(-1, tile)
-    counts = real_t.sum(axis=1)
-    centers = (c_t * real_t[..., None]).sum(axis=1) / np.maximum(counts, 1)[:, None]
-    d = np.linalg.norm(c_t - centers[:, None, :], axis=-1)
-    d = np.where(real_t, d, -np.inf)
-    radii = d.max(axis=1)
-    radii = np.where(counts > 0, radii, -np.inf)
-    return centers, radii
 
 
 def tile_boxes(coords: np.ndarray, tile: int):
     """Static per-tile axis-aligned bounding boxes: (centers (nT, 3),
-    half_extents (nT, 3)).
-
-    Much tighter than the bounding spheres for RCB-ordered tiles (whose
-    splits are axis-aligned by construction).  All-padding tiles get
-    half-extent -inf so a box test can never activate them.
-    """
+    half_extents (nT, 3)).  All-padding tiles get half-extent -inf, so a
+    box test can never activate them."""
     coords = np.asarray(coords, dtype=np.float64)
     n = coords.shape[0]
     pad = (-n) % tile
@@ -1640,28 +231,23 @@ def anm_mode_bounds(nmodes: np.ndarray) -> np.ndarray:
     return np.linalg.norm(nmodes, axis=-1).max(axis=1)
 
 
-def cull_mask(rec_centers, rec_radii, lig_centers_base, lig_radii,
-              t, rot, rec_slack, lig_slack, cutoff):
-    """active (nR, nL, G) int32: 1 where a tile pair may contain an atom
-    pair within ``cutoff`` for pose g (bounding-sphere test).
+def pose_slack(coefs, mode_bounds):
+    """Per-pose upper bound on any atom's ANM displacement: (G,)."""
+    if mode_bounds.shape[0] == 0:
+        return jnp.zeros(coefs.shape[0], dtype=coefs.dtype)
+    return jnp.abs(coefs) @ jnp.asarray(mode_bounds, dtype=coefs.dtype)
 
-    Ligand tile centers move rigidly (c' = R_g c + t_g; radii are rotation
-    -invariant); per-pose ANM displacement is bounded by
-    sum_k |coef_k| * max_atom |mode_k| on each side.
-    """
-    lc = jnp.einsum("gab,nb->gna", rot, lig_centers_base) + t[:, None, :]
-    diff = rec_centers[None, :, None, :] - lc[:, None, :, :]     # (G, nR, nL, 3)
-    dist = jnp.sqrt((diff * diff).sum(-1))
-    limit = (cutoff + rec_radii[None, :, None] + lig_radii[None, None, :]
-             + rec_slack[:, None, None] + lig_slack[:, None, None])
-    act = dist <= limit  # -inf radius (all-padding tile) never activates
-    return jnp.transpose(act, (1, 2, 0)).astype(jnp.int32)        # (nR, nL, G)
+
+# Added to every cutoff: covers the f32 rounding of the traced box test
+# (coordinates of ~100 A carry ~1e-5 A of rounding), so the cull stays
+# conservative.
+CULL_MARGIN = 0.01
 
 
 def cull_mask_boxes(rec_centers, rec_half, lig_centers_base, lig_half,
-                    t, rot, rec_slack, lig_slack, cutoffs):
-    """Box-based cull masks, one (nR, nL, G) int32 per cutoff in
-    ``cutoffs``.
+                    t, rot, rec_slack, lig_slack, cutoff):
+    """(G, nR, nL) int32 mask: 1 where a tile pair may hold an atom pair
+    within ``cutoff`` for pose g.
 
     The receptor tile is a static AABB; the ligand tile's rotated box is
     re-projected onto the world axes (half-extent |R_g| h, the tight AABB
@@ -1670,36 +256,24 @@ def cull_mask_boxes(rec_centers, rec_half, lig_centers_base, lig_half,
         gap_c = max(0, |c_rec - (R_g c_lig + t_g)|_c - (h_rec + |R_g| h_lig
                     + slack)_c)
 
-    lower-bounds every atom-pair distance component; sum(gap^2) <= d2 for
-    every pair in the tile pair, hence skipping when sum(gap^2) > cutoff^2
-    is exact.  Far tighter than the sphere test for axis-aligned RCB tiles
-    (a sphere pays the half-diagonal, up to sqrt(3)x per side).  ANM slack
-    (a bound on displacement *norm*) conservatively widens each axis.
-
-    Padding tiles (marked by -inf half-extents from tile_boxes) are masked
-    out *explicitly*: |rot| @ (-inf) produces NaN for any zero rotation
-    entry, so the gap math is done on sanitized extents and a validity
-    mask forces padded pairs inactive regardless of float semantics.
+    lower-bounds every atom-pair distance component; skipping when
+    sum(gap^2) > cutoff^2 is exact.  ANM slack (a bound on displacement
+    norm) widens each axis.  The contractions run at full f32 precision:
+    a TF32 product would make the bound inexact.  Padding tiles (-inf
+    half-extents) are masked out explicitly.
     """
     valid_r = jnp.isfinite(rec_half).all(-1)                      # (nR,)
     valid_l = jnp.isfinite(lig_half).all(-1)                      # (nL,)
     rec_half = jnp.where(valid_r[:, None], rec_half, 0.0)
     lig_half = jnp.where(valid_l[:, None], lig_half, 0.0)
-    lc = jnp.einsum("gab,nb->gna", rot, lig_centers_base) + t[:, None, :]
-    lh = jnp.einsum("gab,nb->gna", jnp.abs(rot), lig_half)        # (G, nL, 3)
+    lc = jnp.einsum("gab,nb->gna", rot, lig_centers_base,
+                    precision="highest") + t[:, None, :]
+    lh = jnp.einsum("gab,nb->gna", jnp.abs(rot), lig_half,
+                    precision="highest")                          # (G, nL, 3)
     slack = (rec_slack + lig_slack)[:, None, None, None]
     diff = jnp.abs(rec_centers[None, :, None, :] - lc[:, None, :, :])
     reach = rec_half[None, :, None, :] + lh[:, None, :, :] + slack
     gap = jnp.maximum(diff - reach, 0.0)                          # (G, nR, nL, 3)
     d2_lb = (gap * gap).sum(-1)
-    d2_lb = jnp.where(valid_r[None, :, None] & valid_l[None, None, :],
-                      d2_lb, jnp.inf)
-    return [jnp.transpose(d2_lb <= float(c) ** 2, (1, 2, 0)).astype(jnp.int32)
-            for c in cutoffs]
-
-
-def pose_slack(coefs, mode_bounds):
-    """Per-pose upper bound on any atom's ANM displacement: (G,)."""
-    if mode_bounds.shape[0] == 0:
-        return jnp.zeros(coefs.shape[0], dtype=coefs.dtype)
-    return jnp.abs(coefs) @ jnp.asarray(mode_bounds, dtype=coefs.dtype)
+    ok = valid_r[None, :, None] & valid_l[None, None, :]
+    return (ok & (d2_lb <= (float(cutoff) + CULL_MARGIN) ** 2)).astype(jnp.int32)

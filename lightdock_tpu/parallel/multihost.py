@@ -29,8 +29,7 @@ def maybe_initialize_distributed() -> bool:
     """Initialise jax.distributed from standard env vars when present.
 
     Uses JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    (or their jax defaults on cloud TPU).  Returns True when running
-    multi-process.
+    Returns True when running multi-process.
     """
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
     if coord:

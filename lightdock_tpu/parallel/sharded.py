@@ -29,6 +29,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .. import constants as C
@@ -36,11 +37,6 @@ from ..engine.energy_batch import (BatchScoringParams, batch_energy_parts,
                                    finalize_raw)
 from ..engine.gso_jax import SwarmState, gso_step, run_swarm
 from .mesh import ATOM_AXIS, SWARM_AXIS, replicate_params, shard_swarm_states
-
-try:  # modern JAX exposes shard_map at the top level
-    from jax import shard_map  # type: ignore
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 # -- swarm-axis data parallelism -------------------------------------------
 
@@ -102,8 +98,6 @@ def pad_params_for_atom_sharding(params: BatchScoringParams,
         ele_rec=pad_axis(params.ele_rec, 0),
         vdw_c_rec=pad_axis(params.vdw_c_rec, 0),
         vdw_r_rec=pad_axis(params.vdw_r_rec, 0, 1.0),
-        dfire_dq=pad_axis(params.dfire_dq, 1),
-        dfire_rec_half=pad_axis(params.dfire_rec_half, 1),
     )
 
 
@@ -113,32 +107,7 @@ _REC_ATOM_DIM = {
     "rec_coords": 0, "rec_nmodes": 1, "rec_res_onehot": 1,
     "rec_membrane_mask": 0, "atom_types_rec": 0,
     "ele_rec": 0, "vdw_c_rec": 0, "vdw_r_rec": 0,
-    "dfire_dq": 1,  # (K, Nr, Nl): receptor atoms on axis 1
-    "dfire_rec_half": 1,  # (K, Nr, TYPE_PAD): receptor atoms on axis 1
 }
-
-
-def slice_atom_shard(params: BatchScoringParams, s: int,
-                     n_shards: int) -> BatchScoringParams:
-    """Shard ``s``'s contiguous receptor-atom slice (ligand replicated).
-
-    Host-side analogue of what shard_map's ``params_atom_specs`` in_specs
-    produce on device ``s`` — used to build the Pallas shard template and
-    per-shard cull geometry (make_pallas_atom_sharded_fns)."""
-    nr = np.asarray(params.rec_coords).shape[0]
-    assert nr % n_shards == 0, (nr, n_shards)
-    per = nr // n_shards
-    kwargs = {}
-    for f in dataclasses.fields(BatchScoringParams):
-        v = getattr(params, f.name)
-        if f.name in _REC_ATOM_DIM and v is not None:
-            dim = _REC_ATOM_DIM[f.name]
-            sl = [slice(None)] * np.asarray(v).ndim
-            sl[dim] = slice(s * per, (s + 1) * per)
-            kwargs[f.name] = np.asarray(v)[tuple(sl)]
-        else:
-            kwargs[f.name] = v
-    return BatchScoringParams(**kwargs)
 
 
 def params_atom_specs(params: BatchScoringParams) -> BatchScoringParams:
@@ -183,13 +152,9 @@ def _sharded_bias(p_local, raw, iface_rec_loc, iface_lig_part, axis_name):
 
     Collectives: psum on the raw pair sum and per-residue hit counts,
     pmax (an OR) on ligand interface flags, psum on membrane-bead
-    intersections.  Shared by the XLA (atom_sharded_energy) and Pallas
-    (make_pallas_atom_sharded_fns) atom-sharded paths."""
+    intersections."""
     raw = jax.lax.psum(raw, axis_name)
     score = finalize_raw(p_local, raw)
-    if iface_rec_loc is None:
-        # need_iface=False (no restraints, no membrane): bias is identity.
-        return score
     iface_lig = jax.lax.pmax(iface_lig_part, axis_name)
     dtype = score.dtype
 
@@ -269,121 +234,3 @@ def run_multi_swarm_2d(mesh: Mesh, params: BatchScoringParams,
                    out_specs=(out_state_spec, out_steps_spec))
     return jax.jit(fn)(params, states,
                        jnp.asarray(randoms, states.t.dtype))
-
-
-# -- receptor-atom sharding composed with the Pallas kernels ----------------
-
-
-def make_pallas_atom_sharded_fns(params: BatchScoringParams, n_shards: int,
-                                 interpret: bool = False,
-                                 r_tile=None, l_tile=None,
-                                 cull: bool = True, kernel: str = "auto"):
-    """Host-side setup for Pallas energy with receptor atoms sharded.
-
-    The receptor is spatially sorted as one body, padded to
-    ``n_shards * r_tile`` inert atoms, and split into contiguous
-    equal slices; each shard's conservative cull-box geometry is computed
-    host-side with identical semantics to the single-device factory
-    (engine.energy_pallas.rec_box_geometry) and stacked on a leading
-    shard axis so it flows through shard_map as a sharded *input* — the
-    kernel program itself is identical SPMD code on every shard.
-
-    Returns ``(energy_fn, params, rc_stack, rh_stack, (r_tile, l_tile))``:
-    ``energy_fn(p_loc, rc_loc, rh_loc, t, q, a_rec, a_lig)`` runs INSIDE
-    shard_map (psum on raw sums, pmax on ligand interface flags — exactly
-    atom_sharded_energy's collective structure, SURVEY §5); ``params`` is
-    the full sorted+padded model to pass through ``params_atom_specs``.
-    """
-    import dataclasses as _dc
-
-    from ..engine import energy_pallas as ep
-    from ..engine.energy_batch import ensure_dfire_types
-
-    if params.method == "dfire" and kernel != "v1":
-        params = ensure_dfire_types(params)
-        params = _dc.replace(params, dfire_dq=None)
-    kernel = ep.resolve_kernel(params, kernel)
-    auto_r, auto_l = ep.pick_tiles(params, kernel)
-    r_tile = auto_r if r_tile is None else r_tile
-    l_tile = auto_l if l_tile is None else l_tile
-    ep.validate_tiles(r_tile, l_tile)
-    params = ep.spatial_sort_params(params, r_tile=r_tile, l_tile=l_tile)
-    # Whole kernel tiles per shard: slices never straddle the hierarchical
-    # rcb tile boundaries, so per-shard boxes stay compact.
-    params = pad_params_for_atom_sharding(params, n_shards * r_tile)
-    nr = np.asarray(params.rec_coords).shape[0]
-    per = nr // n_shards
-    nl = np.asarray(params.lig_coords).shape[0]
-    r_sub, _ = ep.cull_subsizes(per, nl, r_tile, l_tile)
-    shards = [slice_atom_shard(params, s, n_shards) for s in range(n_shards)]
-    geoms = [ep.rec_box_geometry(np.asarray(sh.rec_coords), r_tile, r_sub)
-             for sh in shards]
-    rc_stack = np.stack([g[0] for g in geoms])
-    rh_stack = np.stack([g[1] for g in geoms])
-    # FULL-receptor ANM mode bounds: conservative for every shard, so the
-    # cull slack is the same SPMD program everywhere.
-    from ..ops.pallas_energy import anm_mode_bounds
-    bounds = (anm_mode_bounds(params.rec_nmodes) if params.use_anm
-              else np.zeros(0))
-    parts_fn = ep.make_pallas_energy_fn(
-        shards[0], interpret=interpret, cull=cull, r_tile=r_tile,
-        l_tile=l_tile, kernel=kernel, shard_parts=True,
-        rec_bounds_override=bounds)
-
-    def energy_fn(p_loc, rc_loc, rh_loc, t, q, a_rec, a_lig,
-                  axis_name: str = ATOM_AXIS):
-        raw, ifr, ifl = parts_fn(p_loc, rc_loc, rh_loc, t, q, a_rec, a_lig)
-        return _sharded_bias(p_loc, raw, ifr, ifl, axis_name)
-
-    return energy_fn, params, rc_stack, rh_stack, (r_tile, l_tile)
-
-
-def run_multi_swarm_2d_pallas(mesh: Mesh, params: BatchScoringParams,
-                              states: SwarmState, randoms,
-                              interpret=None, r_tile=None, l_tile=None,
-                              cull: bool = True):
-    """Full 2-D execution with the Pallas energy path: swarms over
-    SWARM_AXIS, receptor atoms over ATOM_AXIS, one shard_mapped scan.
-
-    Composition the XLA 2-D path (run_multi_swarm_2d) pioneered, with the
-    pair energies from the v2 Pallas kernels on each shard's receptor
-    slice.  The moved/prev_scoring rescoring gate is accepted but computed
-    densely (bit-identical for unmoved poses; the gate's pose-chunk skip
-    is a single-device optimization).  ``randoms`` is (steps, S, G).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n_shards = mesh.shape[ATOM_AXIS]
-    energy_fn, params, rc_stack, rh_stack, _ = make_pallas_atom_sharded_fns(
-        params, n_shards, interpret=interpret, r_tile=r_tile, l_tile=l_tile,
-        cull=cull)
-    specs = params_atom_specs(params)
-    from ..engine.energy_pallas import pose_chunked_energy
-    from ..engine.gso_jax import StepOutput
-
-    state_spec = jax.tree_util.tree_map(lambda _: P(SWARM_AXIS), states)
-    out_steps_spec = StepOutput(*([P(None, SWARM_AXIS)] * len(StepOutput._fields)))
-
-    def body(p_loc, rc_loc, rh_loc, states_loc, randoms_loc):
-        rc0, rh0 = rc_loc[0], rh_loc[0]
-
-        def efn(p, t, q, a_rec, a_lig, moved=None, prev_scoring=None):
-            return energy_fn(p, rc0, rh0, t, q, a_rec, a_lig)
-
-        efn = pose_chunked_energy(efn)
-
-        def run_one(state, rnd):
-            def step(s, r):
-                return gso_step(p_loc, s, r, energy_fn=efn)
-            return jax.lax.scan(step, state, rnd)
-
-        return jax.vmap(run_one, in_axes=(0, 1), out_axes=(0, 1))(
-            states_loc, randoms_loc)
-
-    fn = shard_map(body, mesh=mesh,
-                   in_specs=(specs, P(ATOM_AXIS), P(ATOM_AXIS),
-                             state_spec, P(None, SWARM_AXIS)),
-                   out_specs=(state_spec, out_steps_spec),
-                   check_vma=False)
-    return jax.jit(fn)(params, jnp.asarray(rc_stack), jnp.asarray(rh_stack),
-                       states, jnp.asarray(randoms, states.t.dtype))

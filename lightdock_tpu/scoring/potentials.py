@@ -73,25 +73,3 @@ def load_potential(path=None, allow_synthetic: bool = True) -> np.ndarray:
         )
         _warned = True
     return synthetic_potential()
-
-
-def potential_by_bins(pot_flat: np.ndarray, num_bins: int = 32) -> np.ndarray:
-    """Re-index the flat table as [atoma, atomb, bin] with spill semantics.
-
-    The reference indexes ``flat[atoma*169*20 + atomb*20 + bin]`` where
-    ``bin`` can legitimately reach 31, spilling past the 20-entry stride
-    into the next atom-type row (reference src/dfire.rs:337-338 with
-    DIST_TO_BINS values up to 32).  This materialises that exact lookup as
-    a dense (169, 169, num_bins) tensor so device code can use a
-    channel-select instead of a flat gather.  Out-of-range flat indexes
-    (only reachable for the last atom-type pairs) are filled with 0.
-    """
-    n = DFIRE_NUM_ATOM_TYPES
-    a = np.arange(n)[:, None, None]
-    b = np.arange(n)[None, :, None]
-    k = np.arange(num_bins)[None, None, :]
-    idx = a * (n * DFIRE_NUM_BINS) + b * DFIRE_NUM_BINS + k
-    safe = np.clip(idx, 0, TABLE_SIZE - 1)
-    out = pot_flat[safe]
-    out[idx >= TABLE_SIZE] = 0.0
-    return out

@@ -46,7 +46,8 @@ class Simulation:
         return HostScorer(self.method, self.receptor, self.ligand, self.use_anm)
 
     def batch_params(self, dtype=np.float64) -> BatchScoringParams:
-        return build_batch_params(self.receptor, self.ligand, self.use_anm, dtype=dtype)
+        return build_batch_params(self.receptor, self.ligand, self.use_anm,
+                                  dtype=dtype)
 
 
 def load_structure_pair(setup: SetupFile, simulation_path: str):

@@ -47,6 +47,11 @@ def _load():
     return _lib
 
 
+def available() -> bool:
+    """True when the native IO library is loaded (built on first use)."""
+    return _load() is not None
+
+
 def _configure(lib) -> None:
     lib.ld_parse_pdb.restype = ctypes.c_void_p
     lib.ld_parse_pdb.argtypes = [ctypes.c_char_p]

@@ -1,6 +1,9 @@
 
-import os, sys, time
-sys.path.insert(0, '/root/repo')
+import os, pathlib, sys, time
+REPO = str(pathlib.Path(__file__).resolve().parents[1])
+sys.path.insert(0, REPO)
+# CPU only, on purpose: several workers run at once, and none may open a
+# GPU (a JAX process reserves most of a card's memory when it starts).
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=2")
@@ -11,7 +14,6 @@ if nproc > 1:
     jax.distributed.initialize(coordinator_address="localhost:" + port,
                                num_processes=nproc, process_id=pid)
 import numpy as np, jax.numpy as jnp
-sys.path.insert(0, '/root/repo')
 import __graft_entry__ as ge
 from lightdock_tpu.parallel.farm import SwarmFarmRunner
 

@@ -6,7 +6,9 @@ Swarms are embarrassingly parallel (zero cross-device traffic during
 optimization, parallel/farm.py), so the farm's multi-host weak scaling
 should be near-perfect.  This measures it with REAL multi-process
 execution (jax.distributed over two OS processes, the same machinery a
-2-host TPU pod slice uses), on virtual CPU devices:
+multi-host deployment uses), on virtual CPU devices.  Every worker
+(_hostscale_worker.py) forces the CPU platform, so none of them opens a
+GPU and several can run side by side:
 
   1 process  x D devices, S = 2*D swarms            -> T1 per-device
   2 INDEPENDENT processes x D devices (no
@@ -18,18 +20,18 @@ distributed_efficiency = T2d / T2i isolates the farm's multi-host
 overhead (jax.distributed coordination, global-mesh bookkeeping) from
 plain machine saturation: both T2d and T2i saturate this 2-core machine
 identically (each process pinned to its own core), so their ratio is the
-part that would survive on real multi-host TPU slices, where per-host
+part that would survive on real multi-host deployments, where per-host
 resources are disjoint by construction.  raw_efficiency = T2d / T1 is
 also recorded (it under-reports on a shared 2-core box: the 1-process
 baseline leaves a core free to absorb OS noise).
 
-Round 5 extends the sweep to 4 and 8 processes (VERDICT r4 item 6):
+The sweep covers 2, 4 and 8 processes:
 distributed_efficiency(n) = dist(n)/indep(n) stays meaningful under CPU
 oversubscription because both configurations oversubscribe identically;
 it isolates exactly the jax.distributed + global-mesh overhead that
 would survive on real disjoint hosts.
 
-Writes HOSTSCALING_r05.json at the repo root.
+Writes chiprun_out/hostscaling.json.
 """
 from __future__ import annotations
 
@@ -145,7 +147,8 @@ def main():
         "per_device_poses_per_s": rows,
         "distributed_efficiency": eff,
     }
-    out = ROOT / "HOSTSCALING_r05.json"
+    out = ROOT / "chiprun_out" / "hostscaling.json"
+    out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(artifact, indent=2) + "\n")
     print(f"-> {out}", flush=True)
 

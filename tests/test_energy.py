@@ -9,7 +9,7 @@ from lightdock_tpu import constants as C
 from lightdock_tpu.engine.energy_batch import build_batch_params, batch_energy
 from lightdock_tpu.engine.energy_host import HostScorer
 from lightdock_tpu.scoring.models import DockingModel, build_model
-from lightdock_tpu.scoring.potentials import synthetic_potential, potential_by_bins, TABLE_SIZE
+from lightdock_tpu.scoring.potentials import synthetic_potential
 from lightdock_tpu.scoring import tables
 from lightdock_tpu.utils.pdb import parse_pdb
 
@@ -219,15 +219,3 @@ def test_batch_energy_dfire_matches_host_oracle():
         assert batched[i] == pytest.approx(scorer.energy(t[i], q[i]), rel=1e-10)
 
 
-def test_potential_by_bins_spill_semantics():
-    pot = synthetic_potential()
-    p32 = potential_by_bins(pot)
-    assert p32.shape == (169, 169, 32)
-    # The re-indexed tensor must reproduce the flat spill lookup.
-    rng = np.random.RandomState(1)
-    for _ in range(200):
-        a, b = rng.randint(0, 169, 2)
-        k = rng.randint(0, 32)
-        flat_idx = a * 169 * 20 + b * 20 + k
-        expected = pot[flat_idx] if flat_idx < TABLE_SIZE else 0.0
-        assert p32[a, b, k] == expected

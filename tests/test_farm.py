@@ -1,6 +1,6 @@
 """Production multi-swarm farm (parallel.farm): flat-batched energy over
-all swarms must reproduce per-swarm single runs exactly, the Pallas energy
-mode must match the XLA mode, and resume must be bit-exact."""
+all swarms must reproduce per-swarm single runs exactly, the DFIRE kernel
+energy mode must match the XLA mode, and resume must be bit-exact."""
 
 import jax
 import jax.numpy as jnp
@@ -37,8 +37,7 @@ def _system(method="dfire", n_rec=40, n_lig=25, seed=7, n_swarms=3):
 
     params = build_batch_params(
         model(n_rec), model(n_lig), use_anm=True,
-        potential=synthetic_potential() if method == "dfire" else None,
-        dfire_mode="steps" if method == "dfire" else "gather")
+        potential=synthetic_potential() if method == "dfire" else None)
 
     def positions():
         pos = np.concatenate([
@@ -75,17 +74,17 @@ def test_farm_matches_single_swarm_runs(tmp_path):
             assert a == b, f"swarm {i} step {step}"
 
 
-@pytest.mark.parametrize("method", ["dfire", "dna"])
+@pytest.mark.parametrize("method", ["dfire"])
 def test_farm_pallas_matches_xla(method, tmp_path):
-    """energy_mode='pallas' (interpret mode on CPU) must reproduce the XLA
-    farm trajectory: same selections, f64-close state."""
+    """energy_mode='pallas' (the DFIRE kernel, interpret mode on CPU) must
+    reproduce the XLA farm trajectory: same selections, f64-close state."""
     params, positions_list = _system(method=method, n_swarms=2)
     runs = {}
     for mode in ("xla", "pallas"):
         farm = SwarmFarmRunner(params, positions_list, [0, 1], seed=324324,
                                use_anm=True, anm_rec=NUM_ANM, anm_lig=NUM_ANM,
                                dtype=jnp.float64, output_root=None,
-                               energy_mode=mode, interpret=True)
+                               energy_mode=mode, interpret=mode == "pallas")
         farm.run_segmented(10, segment=10)
         runs[mode] = farm.states
     np.testing.assert_allclose(np.asarray(runs["pallas"].t),
@@ -180,12 +179,19 @@ def test_farm_pads_swarms_to_device_multiple(tmp_path):
 
 
 def test_farm_tile_validation():
-    params, positions_list = _system(n_swarms=1)
-    with pytest.raises(ValueError, match="r_tile"):
+    """The kernel path validates its inputs up front: DFIRE only, and only
+    on a GPU unless interpret mode is asked for."""
+    params, positions_list = _system(method="dna", n_swarms=1)
+    with pytest.raises(ValueError, match="DFIRE only"):
         SwarmFarmRunner(params, positions_list, [0], seed=1, use_anm=True,
                         anm_rec=NUM_ANM, anm_lig=NUM_ANM,
-                        energy_mode="pallas", r_tile=12, l_tile=128)
-    with pytest.raises(ValueError, match="l_tile"):
+                        energy_mode="pallas", interpret=True)
+    params, positions_list = _system(n_swarms=1)
+    runner = GsoJaxRunner(params, positions_list[0], seed=1, use_anm=True,
+                          anm_rec=NUM_ANM, anm_lig=NUM_ANM,
+                          energy_mode="pallas")
+    with pytest.raises(RuntimeError, match="NVIDIA GPUs only"):
+        runner.run(1)
+    with pytest.raises(ValueError, match="energy_mode"):
         GsoJaxRunner(params, positions_list[0], seed=1, use_anm=True,
-                     anm_rec=NUM_ANM, anm_lig=NUM_ANM,
-                     energy_mode="pallas", l_tile=100)
+                     anm_rec=NUM_ANM, anm_lig=NUM_ANM, energy_mode="pallas_v1")

@@ -104,7 +104,7 @@ def test_energy_chunking_invariance():
 
 
 def test_f32_engine_is_close():
-    """The TPU fast path (f32) follows the f64 trajectory for early steps
+    """The f32 device path follows the f64 trajectory for early steps
     on a toy system."""
     rng = np.random.RandomState(4)
     rec, lig = _toy_dfire_models(rng, num_anm=0)
@@ -190,11 +190,9 @@ def test_run_segmented_matches_monolithic(tmp_path):
 
 
 def test_pick_energy_mode_auto():
-    """auto resolves to XLA for small complexes / CPU backends and would
-    only pick pallas for large DFIRE systems on a TPU backend."""
+    """auto resolves to XLA on a CPU backend, whatever the complex size."""
     import dataclasses
-    from lightdock_tpu.engine.gso_jax import (PALLAS_AUTO_MIN_PAIRS,
-                                              pick_energy_mode)
+    from lightdock_tpu.engine.gso_jax import pick_energy_mode
     rng = np.random.RandomState(0)
     rec, lig = _toy_dfire_models(rng)
     params = build_batch_params(rec, lig, use_anm=False,
@@ -204,42 +202,27 @@ def test_pick_energy_mode_auto():
         params,
         rec_coords=np.zeros((4000, 3), np.float32),
         lig_coords=np.zeros((4000, 3), np.float32))
-    assert big.rec_coords.shape[0] * big.lig_coords.shape[0] >= PALLAS_AUTO_MIN_PAIRS
     # still xla because the test backend is CPU
     assert pick_energy_mode(big) == "xla"
 
 
-def test_pick_energy_mode_auto_tpu(monkeypatch):
-    """On a TPU backend, auto must pick pallas above the pair threshold and
-    stay on XLA below it (positive branch; the CPU suite can't reach it
-    without the monkeypatch)."""
+def test_pick_energy_mode_auto_gpu(monkeypatch):
+    """On a GPU backend, auto picks the DFIRE kernel at every complex size
+    and keeps the elec/vdw methods on XLA."""
     import dataclasses
     import lightdock_tpu.engine.gso_jax as gj
-    monkeypatch.setattr(gj.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(gj.jax, "default_backend", lambda: "gpu")
     rng = np.random.RandomState(0)
     rec, lig = _toy_dfire_models(rng)
     params = build_batch_params(rec, lig, use_anm=False,
                                 potential=synthetic_potential())
-    assert gj.pick_energy_mode(params) == "xla"  # small complex
-    big = dataclasses.replace(
-        params,
-        rec_coords=np.zeros((4000, 3), np.float32),
-        lig_coords=np.zeros((4000, 3), np.float32))
-    assert gj.pick_energy_mode(big) == "pallas"
-    # DFIRE + receptor ANM: the r32-locked kernel loses to XLA through
-    # ~1M pairs (1czy, 2uuy measured; SMALL_r05.json) — auto stays XLA.
-    big_anm = dataclasses.replace(
-        big, use_anm=True,
-        rec_nmodes=np.zeros((10, 4000, 3), np.float32),
-        lig_nmodes=np.zeros((10, 4000, 3), np.float32))
-    assert gj.pick_energy_mode(big_anm) == "pallas"  # 16M pairs: dq-HBM territory
-    huge_anm = dataclasses.replace(
-        big_anm,
-        rec_coords=np.zeros((1615, 3), np.float32),
-        rec_nmodes=np.zeros((10, 1615, 3), np.float32),
-        lig_coords=np.zeros((415, 3), np.float32),
-        lig_nmodes=np.zeros((10, 415, 3), np.float32))
-    assert gj.pick_energy_mode(huge_anm) == "xla"  # 2uuy shape, 670k pairs
-    # elec/vdw + receptor ANM keeps pallas (1azp measured win).
-    dna_anm = dataclasses.replace(huge_anm, method="dna")
-    assert gj.pick_energy_mode(dna_anm) == "pallas"
+    assert gj.pick_energy_mode(params) == "pallas"  # small complex
+
+    def sized(p, nr, nl, **kw):
+        return dataclasses.replace(p, rec_coords=np.zeros((nr, 3)),
+                                   lig_coords=np.zeros((nl, 3)), **kw)
+
+    assert gj.pick_energy_mode(sized(params, 640, 32)) == "pallas"
+    assert gj.pick_energy_mode(sized(params, 3413, 3268)) == "pallas"
+    assert gj.pick_energy_mode(sized(params, 1094, 506, method="dna")) == "xla"
+    assert gj.pick_energy_mode(sized(params, 1094, 506, method="pydock")) == "xla"

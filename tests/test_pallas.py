@@ -1,23 +1,30 @@
-"""Pallas kernel correctness (interpret mode on CPU) vs the XLA batch path.
+"""DFIRE pair kernel (ops.pallas_energy) in interpret mode vs the XLA path,
+plus the host tile geometry of its cull.
 
-Compiled-mode equivalence on real TPU hardware is exercised by bench.py and
-the tpu-marked tests; here the kernels run under the Pallas interpreter,
-which validates indexing, accumulation, padding and culling semantics.
+The compiled kernel runs only on an NVIDIA GPU (tests/test_gpu.py); here
+the Pallas interpreter validates indexing, padding, culling and the
+moved-pose gate.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from lightdock_tpu import constants as C
 from lightdock_tpu.engine.energy_batch import batch_energy, build_batch_params
-from lightdock_tpu.engine.energy_pallas import make_pallas_energy_fn
+from lightdock_tpu.engine.energy_pallas import (make_pallas_energy_fn,
+                                                spatial_sort_params)
 from lightdock_tpu.engine.gso_jax import device_params
 from lightdock_tpu.ops import pallas_energy as pe
 from lightdock_tpu.scoring.models import DockingModel
 from lightdock_tpu.scoring.potentials import synthetic_potential
 
+BLK = dict(r_blk=32, l_blk=32)
 
-def _system(method, n_rec=300, n_lig=170, num_anm=2, seed=3, spread=40):
+
+def _system(n_rec=150, n_lig=90, num_anm=2, seed=3, spread=20, bias=True,
+            dtype=np.float32, g=11, method="dfire"):
     rng = np.random.RandomState(seed)
 
     def model(n):
@@ -33,557 +40,129 @@ def _system(method, n_rec=300, n_lig=170, num_anm=2, seed=3, spread=40):
             coordinates=rng.uniform(-spread, spread, size=(n, 3)),
             num_anm=num_anm,
             nmodes=rng.standard_normal((num_anm, n, 3)) * 0.2,
-            membrane=np.array([0, 5], dtype=np.int64),
-            active_restraints={"A.1": [1, 2], "A.2": [7]},
-            passive_restraints={},
-            **kw)
+            membrane=np.array([0, 5] if bias else [], dtype=np.int64),
+            active_restraints={"A.1": [1, 2], "A.2": [7]} if bias else {},
+            passive_restraints={}, **kw)
 
     params = build_batch_params(
-        model(n_rec), model(n_lig), use_anm=num_anm > 0, dtype=np.float32,
-        potential=synthetic_potential() if method == "dfire" else None,
-        dfire_mode="steps")
-    g = 37  # not a multiple of 32: exercises cull-bit packing tails
-    t = rng.uniform(-30, 30, (g, 3)).astype(np.float32)
-    q = rng.standard_normal((g, 4)).astype(np.float32)
+        model(n_rec), model(n_lig), use_anm=num_anm > 0, dtype=dtype,
+        potential=synthetic_potential() if method == "dfire" else None)
+    t = rng.uniform(-1.2 * spread, 1.2 * spread, (g, 3))
+    q = rng.standard_normal((g, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    a_r = rng.uniform(-1, 1, (g, num_anm)).astype(np.float32)
-    a_l = rng.uniform(-1, 1, (g, num_anm)).astype(np.float32)
-    return params, (jnp.asarray(t), jnp.asarray(q), jnp.asarray(a_r), jnp.asarray(a_l))
+    a_r = rng.uniform(-1, 1, (g, num_anm))
+    a_l = rng.uniform(-1, 1, (g, num_anm))
+    return params, [jnp.asarray(x, dtype) for x in (t, q, a_r, a_l)]
+
+
+def _kernel(params, pose, dtype=np.float32, **kw):
+    sp = spatial_sort_params(params, BLK["r_blk"], BLK["l_blk"])
+    fn = make_pallas_energy_fn(sp, interpret=True, **BLK, **kw)
+    return np.asarray(fn(device_params(sp, dtype), *pose))
+
+
+def _xla(params, pose, dtype=np.float32):
+    return np.asarray(batch_energy(device_params(params, dtype), *pose, xp=jnp))
 
 
 @pytest.mark.quick
-@pytest.mark.parametrize("method,tol", [("dfire", 5e-6), ("dna", 5e-5),
-                                        ("pydock", 5e-5)])
-def test_pallas_matches_xla(method, tol):
-    params, pose = _system(method)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True)(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=tol)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("num_anm", [0, 2])
+@pytest.mark.parametrize("bias", [False, True])
+def test_kernel_matches_xla_gather(dtype, num_anm, bias):
+    """Same bin rule, same table values: f64 agrees to rounding, f32 to
+    accumulation order."""
+    params, pose = _system(num_anm=num_anm, bias=bias, dtype=dtype)
+    ref = _xla(params, pose, dtype)
+    out = _kernel(params, pose, dtype)
+    tol = 1e-12 if dtype == np.float64 else 2e-5
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
 
 
-def test_culling_is_conservative():
-    """Culled and uncalled paths must agree exactly: every culled tile has
+@pytest.mark.parametrize("num_anm", [0, 2])
+def test_culling_is_conservative(num_anm):
+    """Culled and unculled runs agree exactly: every culled tile pair has
     provably zero contribution."""
-    params, pose = _system("dfire")
-    dp = device_params(params, np.float32)
-    culled = make_pallas_energy_fn(params, interpret=True, cull=True)(dp, *pose)
-    full = make_pallas_energy_fn(params, interpret=True, cull=False)(dp, *pose)
-    np.testing.assert_array_equal(np.asarray(culled), np.asarray(full))
+    params, pose = _system(num_anm=num_anm)
+    np.testing.assert_array_equal(_kernel(params, pose, cull=True),
+                                  _kernel(params, pose, cull=False))
 
 
-def test_spatial_sort_preserves_energies():
-    from lightdock_tpu.engine.energy_pallas import spatial_sort_params
-    params, pose = _system("dfire")
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    sorted_params = spatial_sort_params(params)
-    dps = device_params(sorted_params, np.float32)
-    out = batch_energy(dps, *pose, xp=jnp)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-6, atol=1e-4)
+def test_cull_mask_covers_every_pair_in_cutoff():
+    """Brute force: every (pose, tile pair) holding an atom pair within
+    15 A is active in the box mask."""
+    from lightdock_tpu.ops import quaternion as qt
+
+    params, pose = _system(num_anm=0, g=7)
+    sp = spatial_sort_params(params, 32, 32)
+    t, q = (np.asarray(x, np.float64) for x in pose[:2])
+    rc, rh = pe.tile_boxes(sp.rec_coords, 32)
+    lc, lh = pe.tile_boxes(sp.lig_coords, 32)
+    rot = qt.rotation_matrix(jnp.asarray(q), jnp)
+    act = np.asarray(pe.cull_mask_boxes(
+        jnp.asarray(rc), jnp.asarray(rh), jnp.asarray(lc), jnp.asarray(lh),
+        jnp.asarray(t), rot, jnp.zeros(7), jnp.zeros(7), 15.0))
+    lig = np.einsum("gab,nb->gna", np.asarray(rot), sp.lig_coords) + t[:, None]
+    d2 = ((sp.rec_coords[None, :, None] - lig[:, None]) ** 2).sum(-1)
+    nr, nl = sp.rec_coords.shape[0], sp.lig_coords.shape[0]
+    pad_r, pad_l = (-nr) % 32, (-nl) % 32
+    hit = np.pad(d2 <= C.DFIRE_DIST_CUTOFF2, ((0, 0), (0, pad_r), (0, pad_l)))
+    need = hit.reshape(7, -1, 32, hit.shape[2] // 32, 32).any(axis=(2, 4))
+    assert not (need & (act == 0)).any()
+    assert act.shape == need.shape
 
 
 def test_culling_actually_culls():
-    """With Morton-sorted atoms and distant poses, most tile-pose work must
-    be skipped (sanity that the mask is not trivially all-ones)."""
-    from lightdock_tpu.engine.energy_pallas import spatial_sort_params
+    """Sorted atoms and distant poses: most tile pairs are skipped."""
     from lightdock_tpu.ops import quaternion as qt
-    params, pose = _system("dfire", spread=60)
-    params = spatial_sort_params(params)
-    t, q, ar, al = pose
-    rc, rr = pe.tile_geometry(params.rec_coords, pe.R_TILE)
-    lc, lr = pe.tile_geometry(params.lig_coords, pe.L_TILE)
-    rot = qt.rotation_matrix(q, jnp)
-    act = pe.cull_mask(jnp.asarray(rc, jnp.float32), jnp.asarray(rr, jnp.float32),
-                       jnp.asarray(lc, jnp.float32), jnp.asarray(lr, jnp.float32),
-                       t * 6.0, rot,  # push poses far out
-                       jnp.zeros(t.shape[0]), jnp.zeros(t.shape[0]), 15.0)
-    frac = float(np.asarray(act).mean())
-    assert frac < 0.7
+
+    params, pose = _system(spread=60)
+    sp = spatial_sort_params(params, 32, 32)
+    t, q = pose[0] * 2.0, pose[1]
+    rc, rh = pe.tile_boxes(sp.rec_coords, 32)
+    lc, lh = pe.tile_boxes(sp.lig_coords, 32)
+    act = pe.cull_mask_boxes(
+        jnp.asarray(rc, jnp.float32), jnp.asarray(rh, jnp.float32),
+        jnp.asarray(lc, jnp.float32), jnp.asarray(lh, jnp.float32),
+        t, qt.rotation_matrix(q, jnp), jnp.zeros(t.shape[0]),
+        jnp.zeros(t.shape[0]), 15.0)
+    assert float(np.asarray(act).mean()) < 0.7
 
 
-def test_pack_cull_bits_roundtrip():
-    rng = np.random.RandomState(1)
-    act = (rng.rand(5, 7, 37) > 0.5).astype(np.int32)
-    words = np.asarray(pe.pack_cull_bits(jnp.asarray(act)))
-    assert words.shape == (5 * 7 * 2,)  # flat for SMEM (1-D, no lane padding)
-    for r in range(5):
-        for l in range(7):
-            for g in range(37):
-                flat = (r * 7 + l) * 2 + g // 32
-                bit = (int(words[flat]) >> (g % 32)) & 1
-                assert bit == act[r, l, g]
+def test_spatial_sort_preserves_energies():
+    params, pose = _system()
+    ref = _xla(params, pose)
+    out = _xla(spatial_sort_params(params), pose)
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-4)
 
 
-def test_tile_geometry_padding():
-    coords = np.random.RandomState(0).uniform(-5, 5, (200, 3))
-    centers, radii = pe.tile_geometry(coords, 128)
-    assert centers.shape == (2, 3) and radii.shape == (2,)
-    assert np.isfinite(radii).all()
-    # A fully-padded tile gets -inf radius.
-    centers2, radii2 = pe.tile_geometry(coords[:128], 128)
-    assert radii2.shape == (1,)
-    coords3 = np.zeros((0, 3))
-    # degenerate empty input should not crash
-    c3, r3 = pe.tile_geometry(coords3.reshape(0, 3), 128) if len(coords3) else (None, None)
+@pytest.mark.parametrize("r_blk,l_blk", [(16, 32), (32, 16), (64, 64)])
+def test_block_sizes_and_padding(r_blk, l_blk):
+    """Atom counts that are not block multiples pad inertly at any block
+    shape (150 x 90 atoms)."""
+    params, pose = _system(num_anm=2)
+    ref = _xla(params, pose)
+    sp = spatial_sort_params(params, r_blk, l_blk)
+    out = make_pallas_energy_fn(sp, interpret=True, r_blk=r_blk,
+                                l_blk=l_blk)(device_params(sp, np.float32), *pose)
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=2e-5, atol=2e-5)
 
 
-def test_anm_slack_bound():
-    rng = np.random.RandomState(2)
-    nmodes = rng.standard_normal((4, 50, 3))
-    bounds = pe.anm_mode_bounds(nmodes)
-    coefs = rng.uniform(-2, 2, (9, 4))
-    slack = np.asarray(pe.pose_slack(jnp.asarray(coefs), bounds))
-    # The bound must dominate every actual per-atom displacement norm.
-    disp = np.einsum("gk,kna->gna", coefs, nmodes)
-    actual = np.linalg.norm(disp, axis=-1).max(axis=1)
-    assert (slack + 1e-9 >= actual).all()
+@pytest.mark.parametrize("g", [1, 3, 11])
+def test_odd_pose_counts(g):
+    params, pose = _system(num_anm=0, g=g)
+    out = _kernel(params, pose)
+    assert out.shape == (g,)
+    np.testing.assert_allclose(out, _xla(params, pose), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("r_tile,l_tile,order", [(32, 128, "rcb"),
-                                                 (64, 128, "rcb"),
-                                                 (128, 128, "morton")])
-def test_pallas_small_tiles_and_orders(r_tile, l_tile, order):
-    """Non-default tile shapes + both spatial orders match the XLA path
-    (the 1k4c fast config is rcb 32x128)."""
-    from lightdock_tpu.engine.energy_pallas import spatial_sort_params
-    params, pose = _system("dfire")
-    sp = spatial_sort_params(params, order=order, r_tile=r_tile, l_tile=l_tile)
+def test_moved_skip():
+    """Unmoved poses return their stored score exactly; moved poses match
+    the ungated computation."""
+    params, pose = _system(num_anm=0)
+    sp = spatial_sort_params(params, 32, 32)
+    fn = make_pallas_energy_fn(sp, interpret=True, **BLK)
     dp = device_params(sp, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    out = make_pallas_energy_fn(sp, interpret=True, cull=True,
-                                r_tile=r_tile, l_tile=l_tile)(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=5e-6)
-
-
-def test_rcb_order_is_permutation_and_compact():
-    rng = np.random.RandomState(7)
-    coords = rng.uniform(-50, 50, (1000, 3))
-    perm = pe.rcb_order(coords, 64)
-    assert sorted(perm) == list(range(1000))
-    _, radii_rcb = pe.tile_geometry(coords[perm], 64)
-    _, radii_id = pe.tile_geometry(coords, 64)
-    assert radii_rcb.mean() < radii_id.mean()
-
-
-def test_bf16_dq_mode_close():
-    """bf16 delta-potential storage (speed/VMEM mode) stays within bf16
-    mantissa error of the f32 kernel."""
-    import dataclasses
-    from lightdock_tpu.engine.energy_pallas import spatial_sort_params
-    params, pose = _system("dfire")
-    sp = spatial_sort_params(params)
-    dp = device_params(sp, np.float32)
-    base = make_pallas_energy_fn(sp, interpret=True)(dp, *pose)
-    dp16 = dataclasses.replace(dp, dfire_dq=jnp.asarray(dp.dfire_dq, jnp.bfloat16))
-    out16 = make_pallas_energy_fn(sp, interpret=True)(dp16, *pose)
-    rel = float(jnp.max(jnp.abs((out16 - base) / base)))
-    assert rel < 0.05
-
-
-def test_bf16_dq_mode_xla_path():
-    """The XLA steps path also accepts bf16 dq (the chain upcasts to f32
-    at the baseline term, so only table values round to bf16)."""
-    import dataclasses
-    from lightdock_tpu.engine.energy_batch import batch_energy
-    params, pose = _system("dfire")
-    dp = device_params(params, np.float32)
-    base = batch_energy(dp, *pose, xp=jnp)
-    dp16 = dataclasses.replace(dp, dfire_dq=jnp.asarray(dp.dfire_dq, jnp.bfloat16))
-    out16 = batch_energy(dp16, *pose, xp=jnp)
-    assert out16.dtype == base.dtype
-    rel = float(jnp.max(jnp.abs((out16 - base) / base)))
-    assert rel < 0.05
-
-
-@pytest.mark.quick
-@pytest.mark.parametrize("method", ["dfire", "dna", "pydock"])
-@pytest.mark.parametrize("num_anm", [0, 2])
-def test_pallas_v2_matches_xla(method, num_anm):
-    """The pose-chunked v2 kernel (type-indexed DFIRE, rigid-receptor fast
-    layout when num_anm == 0) matches the XLA batch path; the atol absorbs
-    f32 accumulation-order noise on near-zero scores."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system(method, num_anm=num_anm)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    # Culled and uncalled must agree exactly (conservative bounds).
-    full = make_pallas_energy_fn(params, interpret=True, cull=False,
-                                 kernel="v2")(dp, *pose)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(full))
-
-
-@pytest.mark.parametrize("far_split", [False, True])
-def test_pallas_v2_far_split_parity(monkeypatch, far_split):
-    """Both branches of the far/near tournament split (V2_FAR_SPLIT, off by
-    default) must match the XLA path AND each other bit-for-bit: the tree
-    shape never changes WHICH cumulative bin a pair selects."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=0)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    monkeypatch.setattr(pe, "V2_FAR_SPLIT", False)
-    base = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                 kernel="v2")(dp, *pose)
-    monkeypatch.setattr(pe, "V2_FAR_SPLIT", far_split)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(base))
-
-
-@pytest.mark.parametrize("far_split", [False, True])
-def test_pallas_v2_subgate_parity(monkeypatch, far_split):
-    """Sub-block exact gating (V2_SUBGATE) selects the same cumulative bin
-    per pair; only the f32 pose-sum accumulation ORDER changes (per 8-row
-    sub-block instead of per 32-row tile), so it matches the XLA path at
-    the standard v2 tolerance, with or without the far/near split."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=0)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    monkeypatch.setattr(pe, "V2_SUBGATE", True)
-    monkeypatch.setattr(pe, "V2_FAR_SPLIT", far_split)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    # Culled and uncalled paths must still agree exactly.
-    full = make_pallas_energy_fn(params, interpret=True, cull=False,
-                                 kernel="v2")(dp, *pose)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(full))
-
-
-@pytest.mark.parametrize("num_anm", [0, 2])
-def test_pallas_v2_far_bits_parity(monkeypatch, num_anm):
-    """Bits-driven far/near split (V2_FAR_BITS): the near decision moves
-    from an in-kernel min-d2 reduce to prefetched box-cull bits.  Selected
-    bins and accumulation order are unchanged, so results must equal the
-    default kernel bit-for-bit and match XLA at tolerance."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=num_anm)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    base = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                 kernel="v2")(dp, *pose)
-    monkeypatch.setattr(pe, "V2_FAR_BITS", True)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(base))
-    # moved-gate path: unmoved poses pass stored scores through even when
-    # their chunk takes the far branch.
-    g = np.asarray(base).shape[0]
-    rng = np.random.RandomState(7)
-    moved = jnp.asarray(rng.rand(g) < 0.5)
-    prev = jnp.asarray(rng.uniform(-5, 5, g).astype(np.float32))
-    gated = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                  kernel="v2")(dp, *pose, moved=moved,
-                                               prev_scoring=prev)
-    m = np.asarray(moved)
-    np.testing.assert_array_equal(np.asarray(gated)[~m], np.asarray(prev)[~m])
-    np.testing.assert_allclose(np.asarray(gated)[m], np.asarray(ref)[m],
-                               rtol=5e-5, atol=5e-5)
-
-
-@pytest.mark.parametrize("num_anm,far_bits", [(0, True), (2, True),
-                                              (0, False)])
-def test_pallas_v2_sub_bits_parity(monkeypatch, num_anm, far_bits):
-    """Sub-block cull bits (V2_SUB_BITS): act/near bits at 8-receptor-row
-    granularity, tested per sub-block from SMEM.  Selected bins are
-    identical; only the f32 pose-sum accumulation ORDER changes (per
-    sub-block instead of per tile), so parity vs XLA is at the standard v2
-    tolerance.  Covers rigid + receptor-ANM and the no-near-bits fallback,
-    plus the moved-gate path and cull/no-cull agreement."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=num_anm)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    monkeypatch.setattr(pe, "V2_SUB_BITS", True)
-    monkeypatch.setattr(pe, "V2_FAR_BITS", far_bits)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    # Culled and uncalled paths must agree exactly (same accumulation
-    # order: the no-cull path also runs per sub-block).
-    full = make_pallas_energy_fn(params, interpret=True, cull=False,
-                                 kernel="v2")(dp, *pose)
-    # cull=False disables sub bits (bits_rg=1), so agreement is at
-    # tolerance only (different accumulation order), not bit-exact.
-    np.testing.assert_allclose(np.asarray(out), np.asarray(full),
-                               rtol=5e-5, atol=5e-5)
-    # moved-gate path: unmoved poses pass stored scores through.
-    g = np.asarray(ref).shape[0]
-    rng = np.random.RandomState(11)
-    moved = jnp.asarray(rng.rand(g) < 0.5)
-    prev = jnp.asarray(rng.uniform(-5, 5, g).astype(np.float32))
-    gated = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                  kernel="v2")(dp, *pose, moved=moved,
-                                               prev_scoring=prev)
-    m = np.asarray(moved)
-    np.testing.assert_array_equal(np.asarray(gated)[~m], np.asarray(prev)[~m])
-    np.testing.assert_allclose(np.asarray(gated)[m], np.asarray(ref)[m],
-                               rtol=5e-5, atol=5e-5)
-
-
-@pytest.mark.parametrize("num_anm", [0, 2])
-def test_pallas_v2_far2_parity(monkeypatch, num_anm):
-    """Three-way far split (V2_FAR2): a fourth cull cutoff classifies
-    chunks {near, mid, far2}; subtree choice never changes WHICH bin a
-    pair selects, so results must equal the two-way far-bits kernel
-    bit-for-bit and match XLA at tolerance."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=num_anm)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    monkeypatch.setattr(pe, "V2_FAR_BITS", True)
-    base = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                 kernel="v2")(dp, *pose)
-    monkeypatch.setattr(pe, "V2_FAR2", True)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(base))
-    # the split indices the kernel and the host cull derive must agree
-    th = np.asarray(params.dfire_thresholds, np.float64)
-    s2, s1, live = pe.dfire_far_split2(tuple(float(x) for x in th))
-    assert s2 is not None and s2 > s1
-
-
-def test_pallas_v2_aug_d2_parity(monkeypatch):
-    """V2_D2=aug computes d2 as one MXU contraction per pose (expansion
-    form).  Rounding differs from the direct difference, so parity vs XLA
-    is at tolerance; with the fixed seed no pair sits near a bin edge."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=0)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    monkeypatch.setattr(pe, "V2_D2", "aug")
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-3, atol=1e-3)
-    # composes with the bits-driven far split
-    monkeypatch.setattr(pe, "V2_FAR_BITS", True)
-    out2 = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                 kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out2), np.asarray(ref),
-                               rtol=1e-3, atol=1e-3)
-
-
-@pytest.mark.parametrize("gate,select,order", [
-    (False, "tree", "morton"),   # exact-d2 gate off
-    (True, "chain", "morton"),   # serial select chain
-    (True, "tree", "none"),      # Morton pose sort off
-])
-def test_pallas_v2_measurement_toggles(monkeypatch, gate, select, order):
-    """The kernel-optimization measurement toggles (exact-gate, select
-    tree/chain, Morton order) are semantically free: every combination
-    must match the XLA path."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=0)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    monkeypatch.setattr(pe, "V2_EXACT_GATE", gate)
-    monkeypatch.setattr(pe, "V2_SELECT", select)
-    monkeypatch.setenv("LIGHTDOCK_POSE_ORDER", order)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-
-
-@pytest.mark.parametrize("method", ["dna", "pydock"])
-@pytest.mark.parametrize("num_anm", [0, 2])
-def test_pallas_v2_ev_far_bits_parity(monkeypatch, method, num_anm):
-    """Elec/vdw vdw-tier far bits (V2_EV_FAR_BITS): chunks whose prefetched
-    10 A vdw-cutoff bit is 0 run an elec-only body.  The near bit is
-    conservative, so skipped vdw terms are provably zero and results must
-    equal the bits-off kernel bit-for-bit and match XLA at tolerance."""
-    params, pose = _system(method, num_anm=num_anm)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    monkeypatch.setattr(pe, "V2_EV_FAR_BITS", False)
-    base = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                 kernel="v2")(dp, *pose)
-    monkeypatch.setattr(pe, "V2_EV_FAR_BITS", True)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(base))
-    # moved-gate path: unmoved poses pass stored scores through even when
-    # their chunk takes the elec-only branch.
-    g = np.asarray(base).shape[0]
-    rng = np.random.RandomState(11)
-    moved = jnp.asarray(rng.rand(g) < 0.5)
-    prev = jnp.asarray(rng.uniform(-5, 5, g).astype(np.float32))
-    gated = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                  kernel="v2")(dp, *pose, moved=moved,
-                                               prev_scoring=prev)
-    m = np.asarray(moved)
-    np.testing.assert_array_equal(np.asarray(gated)[~m], np.asarray(prev)[~m])
-    np.testing.assert_allclose(np.asarray(gated)[m], np.asarray(ref)[m],
-                               rtol=5e-5, atol=5e-5)
-
-
-@pytest.mark.parametrize("method", ["dna", "pydock"])
-def test_pallas_v2_ev_exact_gate_off_parity(monkeypatch, method):
-    """LIGHTDOCK_V2_EV_EXACT_GATE=0 drops the elec/vdw kernel's in-chunk
-    any(d2<=cut) reduce (the DFIRE kernel measured the equivalent as a
-    net cost); results are identical — the gate only skips provably-zero
-    work."""
-    params, pose = _system(method)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    # Far bits off: the exact gate only exists in the non-far-bits body.
-    monkeypatch.setattr(pe, "V2_EV_FAR_BITS", False)
-    monkeypatch.setattr(pe, "V2_EV_EXACT_GATE", True)
-    base = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                 kernel="v2")(dp, *pose)
-    monkeypatch.setattr(pe, "V2_EV_EXACT_GATE", False)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(base))
-
-
-@pytest.mark.parametrize("num_anm", [0, 2])
-def test_pallas_v2_worklist_parity(monkeypatch, num_anm):
-    """Work-list grid (V2_WORKLIST): a 1-D grid over the compacted
-    active-tile list must match XLA at tolerance (accumulation order is
-    list order, so not bit-identical to the 2-D kernel) and honor the
-    moved-gate."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=num_anm)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, *pose, xp=jnp)
-    monkeypatch.setattr(pe, "V2_WORKLIST", True)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, *pose)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-    g = np.asarray(out).shape[0]
-    rng = np.random.RandomState(13)
-    moved = jnp.asarray(rng.rand(g) < 0.5)
-    prev = jnp.asarray(rng.uniform(-5, 5, g).astype(np.float32))
-    gated = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                  kernel="v2")(dp, *pose, moved=moved,
-                                               prev_scoring=prev)
-    m = np.asarray(moved)
-    np.testing.assert_array_equal(np.asarray(gated)[~m], np.asarray(prev)[~m])
-    np.testing.assert_allclose(np.asarray(gated)[m], np.asarray(ref)[m],
-                               rtol=5e-5, atol=5e-5)
-    # All-unmoved poses: n_active can be 0; outputs must still be the
-    # stored scores (accumulators initialized at grid step 0).
-    allprev = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                    kernel="v2")(
-        dp, *pose, moved=jnp.zeros(g, bool), prev_scoring=prev)
-    np.testing.assert_array_equal(np.asarray(allprev), np.asarray(prev))
-
-
-def test_dfire_type_tables_match_dq():
-    """The type factorization must reproduce the dq tensor exactly:
-    rec_half[k] @ lig_onehot == dfire_dq[k] bit-for-bit (both select the
-    same f32 table entries)."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, _ = _system("dfire")
-    params = ensure_dfire_types(params)
-    dq = np.asarray(params.dfire_dq)           # f32 (build dtype)
-    rh = np.asarray(params.dfire_rec_half)     # f64 (downcast on upload)
-    oh = np.asarray(params.dfire_lig_onehot)
-    rebuilt = np.einsum("kit,tj->kij", rh, oh).astype(np.float32)
-    np.testing.assert_array_equal(rebuilt, dq)
-
-
-def test_pallas_v2_resolve_kernel():
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    from lightdock_tpu.engine.energy_pallas import resolve_kernel
-    params, _ = _system("dfire")
-    assert resolve_kernel(params) == "v1"          # no type tables yet
-    assert resolve_kernel(ensure_dfire_types(params)) == "v2"
-    dna, _ = _system("dna")
-    assert resolve_kernel(dna) == "v2"
-    assert resolve_kernel(dna, "v1") == "v1"
-
-
-def test_pallas_v2_odd_pose_count():
-    """G not a multiple of the pose block exercises pose padding (padded
-    poses must contribute nothing and be sliced off)."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=0)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    t, q, ar, al = pose
-    for g in (3, 11):
-        sub = (t[:g], q[:g], ar[:g], al[:g])
-        ref = batch_energy(dp, *sub, xp=jnp)
-        out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                    kernel="v2")(dp, *sub)
-        assert out.shape == (g,)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                                   rtol=5e-5, atol=5e-5)
-
-
-def test_pallas_v2_no_bias_system():
-    """need_iface=False on the v2 kernel: interface outputs shrink to
-    dummies (VMEM) and the bias is skipped; scores must match XLA."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    rng = np.random.RandomState(5)
-
-    def model(n):
-        return DockingModel(
-            method="dfire", coordinates=rng.uniform(-30, 30, size=(n, 3)),
-            num_anm=0, nmodes=np.zeros((0, n, 3)),
-            membrane=np.zeros(0, dtype=np.int64),
-            active_restraints={}, passive_restraints={},
-            atom_types=rng.randint(0, 168, size=n).astype(np.int32))
-
-    params = build_batch_params(model(300), model(170), use_anm=False,
-                                dtype=np.float32,
-                                potential=synthetic_potential(),
-                                dfire_mode="steps")
-    params = ensure_dfire_types(params)
-    g = 9
-    t = jnp.asarray(rng.uniform(-20, 20, (g, 3)), jnp.float32)
-    q = rng.standard_normal((g, 4)); q /= np.linalg.norm(q, axis=1, keepdims=True)
-    q = jnp.asarray(q, jnp.float32)
-    a = jnp.zeros((g, 0), jnp.float32)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, t, q, a, a, xp=jnp)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True,
-                                kernel="v2")(dp, t, q, a, a)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=5e-5, atol=5e-5)
-
-
-def test_pallas_v2_moved_skip():
-    """With the moved/prev_scoring gate, unmoved poses return their stored
-    score exactly and moved poses match the ungated computation."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    params, pose = _system("dfire", num_anm=0)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    fn = make_pallas_energy_fn(params, interpret=True, cull=True, kernel="v2")
     full = np.asarray(fn(dp, *pose))
     g = full.shape[0]
     rng = np.random.RandomState(11)
@@ -595,57 +174,73 @@ def test_pallas_v2_moved_skip():
     np.testing.assert_array_equal(gated[m], full[m])
 
 
-def test_pose_chunked_energy_matches_unchunked():
-    """pose_chunked_energy splits huge pose batches across kernel launches
-    with identical results (gated and ungated), incl. non-divisible counts
-    (37 poses at max_chunk=16 -> 3 balanced chunks with padding)."""
-    from lightdock_tpu.engine.energy_batch import ensure_dfire_types
-    from lightdock_tpu.engine.energy_pallas import pose_chunked_energy
-    params, pose = _system("dfire", num_anm=2)
-    params = ensure_dfire_types(params)
-    dp = device_params(params, np.float32)
-    fn = make_pallas_energy_fn(params, interpret=True, cull=True, kernel="v2")
-    chunked = pose_chunked_energy(fn, max_chunk=16)
-    full = np.asarray(fn(dp, *pose))
-    out = np.asarray(chunked(dp, *pose))
-    # Tolerance, not equality: XLA fuses the pose-transform differently at
-    # different batch shapes (verified: permuting or zero-padding poses at
-    # a FIXED shape changes nothing).  Within a run the chunking is fixed,
-    # so the moved-gate's recompute==stored invariant is unaffected.
-    np.testing.assert_allclose(out, full, rtol=3e-5)
+def test_slot_table_matches_reference_lookup():
+    """T[ta, tb, slot] is the reference's flat-table value for that slot's
+    bin, including the spill of bin 20 into the next type pair."""
+    from lightdock_tpu.scoring import tables
 
-    g = full.shape[0]
-    rng = np.random.RandomState(11)
-    moved = jnp.asarray(rng.rand(g) < 0.6)
-    prev = jnp.asarray(rng.uniform(-5, 5, g).astype(np.float32))
-    gated_c = np.asarray(chunked(dp, *pose, moved=moved, prev_scoring=prev))
-    m = np.asarray(moved)
-    # Unmoved poses pass their stored score through bit-exactly.
-    np.testing.assert_array_equal(gated_c[~m], np.asarray(prev)[~m])
-    np.testing.assert_allclose(gated_c[m], full[m], rtol=3e-5)
+    pot = synthetic_potential()
+    d2b = tables.dfire_tables()["dist_to_bins"]
+    t = pe.slot_table(pot, np.asarray(d2b), xp=np).reshape(169, 169, pe.NUM_SLOTS)
+    rng = np.random.RandomState(0)
+    for ta, tb, s in zip(rng.randint(0, 169, 50), rng.randint(0, 169, 50),
+                         rng.randint(0, pe.NUM_SLOTS, 50)):
+        idx = min(ta * 3380 + tb * 20 + d2b[s] - 1, pot.size - 1)
+        assert t[ta, tb, s] == pot[idx]
+    np.testing.assert_array_equal(
+        np.asarray(pe.slot_table(jnp.asarray(pot), jnp.asarray(d2b))),
+        t.reshape(-1))
 
 
-def test_pallas_no_bias_system():
-    """A system with no restraints and no membrane skips interface work
-    (need_iface static flag) and must still match the XLA path."""
-    rng = np.random.RandomState(5)
-    def model(n):
-        return DockingModel(
-            method="dfire", coordinates=rng.uniform(-30, 30, size=(n, 3)),
-            num_anm=0, nmodes=np.zeros((0, n, 3)),
-            membrane=np.zeros(0, dtype=np.int64),
-            active_restraints={}, passive_restraints={},
-            atom_types=rng.randint(0, 168, size=n).astype(np.int32))
-    params = build_batch_params(model(300), model(170), use_anm=False,
-                                dtype=np.float32,
-                                potential=synthetic_potential(),
-                                dfire_mode="steps")
-    g = 9
-    t = jnp.asarray(rng.uniform(-20, 20, (g, 3)), jnp.float32)
-    q = rng.standard_normal((g, 4)); q /= np.linalg.norm(q, axis=1, keepdims=True)
-    q = jnp.asarray(q, jnp.float32)
-    a = jnp.zeros((g, 0), jnp.float32)
-    dp = device_params(params, np.float32)
-    ref = batch_energy(dp, t, q, a, a, xp=jnp)
-    out = make_pallas_energy_fn(params, interpret=True, cull=True)(dp, t, q, a, a)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=5e-6)
+def test_kernel_without_interpret_raises_off_gpu():
+    """No silent interpreter fallback: off the GPU the compiled kernel is
+    an error unless the caller asks for interpret mode."""
+    assert jax.default_backend() != "gpu"
+    params, pose = _system(num_anm=0)
+    sp = spatial_sort_params(params)
+    with pytest.raises(RuntimeError, match="NVIDIA GPUs only"):
+        make_pallas_energy_fn(sp)(device_params(sp, np.float32), *pose)
+
+
+def test_kernel_covers_dfire_only():
+    params, _ = _system(method="dna")
+    with pytest.raises(ValueError, match="DFIRE only"):
+        make_pallas_energy_fn(params, interpret=True)
+
+
+def test_block_sizes_must_be_powers_of_two():
+    params, _ = _system()
+    with pytest.raises(ValueError, match="power of two"):
+        make_pallas_energy_fn(params, interpret=True, r_blk=48)
+
+
+def test_rcb_order_is_permutation_and_compact():
+    rng = np.random.RandomState(7)
+    coords = rng.uniform(-50, 50, (1000, 3))
+    perm = pe.rcb_order(coords, 64)
+    assert sorted(perm) == list(range(1000))
+    vol = lambda h: np.prod(2 * h, axis=1).mean()  # noqa: E731
+    assert vol(pe.tile_boxes(coords[perm], 64)[1]) < vol(pe.tile_boxes(coords, 64)[1])
+
+
+def test_tile_boxes_padding():
+    """200 atoms in 128-atom tiles: two boxes, each holding its atoms (the
+    second tile is part padding, which never widens the box)."""
+    coords = np.random.RandomState(0).uniform(-5, 5, (200, 3))
+    centers, half = pe.tile_boxes(coords, 128)
+    assert centers.shape == (2, 3) and half.shape == (2, 3)
+    assert np.isfinite(half).all()
+    for i, chunk in enumerate((coords[:128], coords[128:])):
+        assert (np.abs(chunk - centers[i]) <= half[i] + 1e-12).all()
+        np.testing.assert_allclose(half[i], np.ptp(chunk, axis=0) / 2)
+
+
+def test_anm_slack_bound():
+    rng = np.random.RandomState(2)
+    nmodes = rng.standard_normal((4, 50, 3))
+    bounds = pe.anm_mode_bounds(nmodes)
+    coefs = rng.uniform(-2, 2, (9, 4))
+    slack = np.asarray(pe.pose_slack(jnp.asarray(coefs), bounds))
+    disp = np.einsum("gk,kna->gna", coefs, nmodes)
+    actual = np.linalg.norm(disp, axis=-1).max(axis=1)
+    assert (slack + 1e-9 >= actual).all()
